@@ -1,16 +1,18 @@
 """Build the port's host state from the JAX package's, array for array.
 
 The assembler has no weights; what crosses between the two packages is
-state: counted (k+1)-mers, the extension index and the condensed graph.
+state: counted (k+1)-mers, the extension index, the condensed graph and the
+edge k-mer index of the read mapper.
 Each function takes that state as a dict of numpy arrays (plus `k`), as
 `dataclasses.asdict` gives it for `spades_tpu`'s `KmerCounts`,
-`ExtensionIndex` or `CondensedGraph`, and returns the port's object, so one
+`ExtensionIndex`, `CondensedGraph` or `EdgeIndex`, and returns the port's object, so one
 JAX-built state can feed a port stage (the parity tests do this).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .alignment.mapper import EdgeIndex
 from .graph.graph import CondensedGraph
 from .ops.count import KmerCounts
 from .ops.extension import ExtensionIndex
@@ -53,4 +55,14 @@ def graph_from_arrays(d: dict) -> CondensedGraph:
         alive=np.ascontiguousarray(d["alive"], bool),
         seq_pool=np.ascontiguousarray(d["seq_pool"], np.uint8),
         v_conj=np.ascontiguousarray(d["v_conj"], np.int64),
+    )
+
+
+def edge_index_from_arrays(d: dict) -> EdgeIndex:
+    return EdgeIndex(
+        k=int(d["k"]),
+        kmers=np.ascontiguousarray(d["kmers"], np.uint32),
+        edge=np.ascontiguousarray(d["edge"], np.int64),
+        offset=np.ascontiguousarray(d["offset"], np.int64),
+        strand=np.ascontiguousarray(d["strand"], np.uint8),
     )

@@ -172,14 +172,10 @@ def doubling_packs(codes: torch.Tensor):
     return B, D
 
 
-def canonical_windows(codes: torch.Tensor, lengths: torch.Tensor,
-                      n_mask: torch.Tensor, k: int):
-    """All canonical k-mers of a read batch.
-
-    codes (R, L) integer codes in {0..3}, lengths (R,), n_mask (R, L) bool.
-    Returns (canon (R, P, W) int64 holding uint32 words, with sentinel rows
-    where invalid; valid (R, P) bool), P = L - k + 1 — the semantics of
-    `spades_tpu.core.kmers.canonical_windows`."""
+def _canonical_windows_strand(codes: torch.Tensor, lengths: torch.Tensor,
+                              n_mask: torch.Tensor, k: int):
+    """Shared body of `canonical_windows` and `canonical_windows_strand`:
+    (canon, valid, use_rc)."""
     R, L = codes.shape
     P = L - k + 1
     if P <= 0:
@@ -210,7 +206,51 @@ def canonical_windows(codes: torch.Tensor, lengths: torch.Tensor,
     canon = torch.where(use_rc[..., None], rcw, fwd)
     valid = window_valid(lengths, n_mask, k)
     canon = torch.where(valid[..., None], canon, int(SENTINEL32))
+    return canon, valid, use_rc
+
+
+def canonical_windows(codes: torch.Tensor, lengths: torch.Tensor,
+                      n_mask: torch.Tensor, k: int):
+    """All canonical k-mers of a read batch.
+
+    codes (R, L) integer codes in {0..3}, lengths (R,), n_mask (R, L) bool.
+    Returns (canon (R, P, W) int64 holding uint32 words, with sentinel rows
+    where invalid; valid (R, P) bool), P = L - k + 1 — the semantics of
+    `spades_tpu.core.kmers.canonical_windows`."""
+    canon, valid, _ = _canonical_windows_strand(codes, lengths, n_mask, k)
     return canon, valid
+
+
+def canonical_windows_strand(codes: torch.Tensor, lengths: torch.Tensor,
+                             n_mask: torch.Tensor, k: int):
+    """Like `canonical_windows` but also returns was_rc (R, P) bool: True
+    where the canonical form is the reverse complement of the spelled window
+    (the orientation bit read mappers need).  As in
+    `spades_tpu.core.kmers.canonical_windows_strand`, was_rc is not masked by
+    `valid`."""
+    return _canonical_windows_strand(codes, lengths, n_mask, k)
+
+
+def pack_windows(codes: torch.Tensor, k: int, rc: bool = False) -> torch.Tensor:
+    """Pack every length-k window of each read, base by base.
+
+    codes (R, L) integer codes in {0..3} -> (R, P, W) int64 holding uint32
+    words, P = L - k + 1.  With rc=True, packs the reverse complement of each
+    window instead (rc_kmer[j] = 3 - base[i + k - 1 - j])."""
+    R, L = codes.shape
+    P = L - k + 1
+    if P <= 0:
+        raise ValueError(f"read length {L} < k {k}")
+    c = codes.to(torch.int64)
+    words = []
+    for w in range(kmer_words(k)):
+        acc = torch.zeros((R, P), dtype=torch.int64, device=codes.device)
+        for jj in range(min(16, k - 16 * w)):
+            j = 16 * w + jj
+            col = 3 - c[:, k - 1 - j : k - 1 - j + P] if rc else c[:, j : j + P]
+            acc = acc | (col << (30 - 2 * jj))
+        words.append(acc)
+    return torch.stack(words, dim=-1)
 
 
 def canon_to_keys(canon: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

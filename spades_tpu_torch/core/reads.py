@@ -297,3 +297,40 @@ class ReadStore:
             chunks.append(PackedChunk(pc=pc, pn=pn, lengths=lengths, L=L,
                                       n=len(part)))
         return cls(chunks, n)
+
+
+def subset_store(store: "ReadStore", idx: np.ndarray,
+                 chunk_reads: int = 262144) -> "ReadStore":
+    """New ReadStore holding only the reads at global indices `idx`
+    (ascending).  Gathers wire rows on the host — used by the gap closer to
+    map only prefiltered candidate reads."""
+    idx = np.asarray(idx, np.int64)
+    pcs, pns, lens = [], [], []
+    a = 0
+    L = store.chunks[0].L if store.chunks else 8
+    for ch in store.chunks:
+        sel = idx[(idx >= a) & (idx < a + ch.n)] - a
+        if sel.size:
+            pcs.append(ch.pc[sel])
+            pns.append(ch.pn[sel])
+            lens.append(ch.lengths[sel])
+        a += ch.n
+    if not pcs:
+        return ReadStore([], 0)
+    pc = np.concatenate(pcs)
+    pn = np.concatenate(pns)
+    ln = np.concatenate(lens)
+    n = pc.shape[0]
+    chunks = []
+    for c0 in range(0, n, chunk_reads):
+        part = slice(c0, min(c0 + chunk_reads, n))
+        m = part.stop - part.start
+        R = _next_pow2(m, lo=1024)
+        pcp = np.zeros((R, pc.shape[1]), np.uint8)
+        pnp = np.zeros((R, pn.shape[1]), np.uint8)
+        lnp = np.zeros(R, np.int32)
+        pcp[:m] = pc[part]
+        pnp[:m] = pn[part]
+        lnp[:m] = ln[part]
+        chunks.append(PackedChunk(pc=pcp, pn=pnp, lengths=lnp, L=L, n=m))
+    return ReadStore(chunks, n)

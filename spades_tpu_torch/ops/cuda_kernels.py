@@ -26,6 +26,9 @@ _SO = os.path.join(BUILD_DIR, "libcanonical_windows.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# spades_canonical_windows(pc, pn, lengths, keys, valid, strand, R, L, k, stream)
+C_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
 _lib = None
 build_log = ""
 
@@ -64,36 +67,43 @@ def build() -> str:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     lib = ctypes.CDLL(_SO)
-    vp = ctypes.c_void_p
-    ci = ctypes.c_int
-    lib.spades_canonical_windows.restype = ci
-    lib.spades_canonical_windows.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.spades_canonical_windows.restype = ctypes.c_int
+    lib.spades_canonical_windows.argtypes = C_ARGTYPES
     lib.spades_cuda_error_string.restype = ctypes.c_char_p
-    lib.spades_cuda_error_string.argtypes = [ci]
+    lib.spades_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib
     return _SO
 
 
 def canonical_window_keys_plain(pc: torch.Tensor, pn: torch.Tensor,
-                                lengths: torch.Tensor, L: int, k: int):
+                                lengths: torch.Tensor, L: int, k: int,
+                                strand: bool = False):
     """Plain PyTorch version of the canonical_windows kernel: unpack the
     wire format, take the canonical windows, fold them into sort keys."""
     from .count import unpack_batch_device
 
     codes, n_mask = unpack_batch_device(pc, pn, L)
-    canon, valid = K.canonical_windows(codes, lengths, n_mask, k)
-    return K.canon_to_keys(canon, valid), valid
+    canon, valid, use_rc = K.canonical_windows_strand(codes, lengths, n_mask, k)
+    keys = K.canon_to_keys(canon, valid)
+    return (keys, valid, use_rc & valid) if strand else (keys, valid)
 
 
 def canonical_window_keys(pc: torch.Tensor, pn: torch.Tensor,
-                          lengths: torch.Tensor, L: int, k: int):
+                          lengths: torch.Tensor, L: int, k: int,
+                          strand: bool = False):
     """Canonical k-mer keys of every window of a packed read batch.
 
     pc (R, ceil(L/4)) uint8, pn (R, ceil(L/8)) uint8, lengths (R,) int32,
     all on one device.  Returns (keys (ceil(W/2), R*P) int64, valid (R, P)
     bool), P = L - k + 1, in the key layout of core/kmers.py; invalid
-    windows hold INT64_MAX in every plane.  Counterpart of
-    `spades_tpu/ops/pallas_kernels.py:_extract_kernel`."""
+    windows hold INT64_MAX in every plane.  With strand=True it returns
+    (keys, valid, was_rc): was_rc (R, P) bool is True where the window is
+    valid and its canonical form is its reverse complement, the third
+    output of `core/kmers.py:canonical_windows_strand` masked by `valid`.
+    The kernel reads its inputs from the 16-byte line that holds their first
+    byte: they must lie in allocations that start on such a line, as those
+    of torch's and every CUDA allocator do.
+    Counterpart of `spades_tpu/ops/pallas_kernels.py:_extract_kernel`."""
     R = pc.shape[0]
     if not 1 <= k <= 128 or L < k:
         raise ValueError(f"need 1 <= k <= 128 and k <= L, got k={k}, L={L}")
@@ -107,29 +117,28 @@ def canonical_window_keys(pc: torch.Tensor, pn: torch.Tensor,
     if not (pc.device == pn.device == lengths.device):
         raise ValueError("pc, pn and lengths must be on one device")
     if pc.device.type == "cpu":
-        return canonical_window_keys_plain(pc, pn, lengths, L, k)
+        return canonical_window_keys_plain(pc, pn, lengths, L, k, strand)
     if pc.device.type != "cuda":
         raise ValueError(f"unsupported device {pc.device}")
     if not (pc.is_contiguous() and pn.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("pc, pn and lengths must be contiguous")
     build()
     P = L - k + 1
-    nk = K.key_planes(k)
-    keys = torch.empty((nk, R * P), dtype=torch.int64, device=pc.device)
+    keys = torch.empty((K.key_planes(k), R * P), dtype=torch.int64, device=pc.device)
     valid = torch.empty((R, P), dtype=torch.bool, device=pc.device)
-    if R == 0:
-        return keys, valid
-    with torch.cuda.device(pc.device):
-        stream = torch.cuda.current_stream(pc.device).cuda_stream
-        rc = _lib.spades_canonical_windows(
-            pc.data_ptr(), pn.data_ptr(), lengths.data_ptr(), keys.data_ptr(),
-            valid.data_ptr(), R, L, k, stream,
-        )
-    if rc != 0:
-        msg = _lib.spades_cuda_error_string(rc).decode()
-        raise RuntimeError(f"canonical_windows kernel launch failed: {msg} ({rc})")
-    canonical_window_keys.launches += 1
-    return keys, valid
+    was_rc = torch.empty((R, P), dtype=torch.bool, device=pc.device) if strand else None
+    if R > 0:
+        with torch.cuda.device(pc.device):
+            stream = torch.cuda.current_stream(pc.device).cuda_stream
+            rc = _lib.spades_canonical_windows(
+                pc.data_ptr(), pn.data_ptr(), lengths.data_ptr(), keys.data_ptr(),
+                valid.data_ptr(), was_rc.data_ptr() if strand else None, R, L, k, stream,
+            )
+        if rc != 0:
+            msg = _lib.spades_cuda_error_string(rc).decode()
+            raise RuntimeError(f"canonical_windows kernel launch failed: {msg} ({rc})")
+        canonical_window_keys.launches += 1
+    return (keys, valid, was_rc) if strand else (keys, valid)
 
 
 canonical_window_keys.launches = 0

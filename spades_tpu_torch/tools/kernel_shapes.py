@@ -1,0 +1,100 @@
+"""Yardsticks of the canonical-windows kernel: the shapes the main path gives
+it, random inputs, the card's bound and a timer.  One copy, used by
+`chip_smoke.py` and `tools/kernel_bench.py`."""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.reads import ReadBatch
+
+H100_BYTES_PER_S = 3.35e12     # HBM3 rate of an H100 SXM (NVIDIA data sheet)
+# the non-tensor float32 peak of an H100 SXM (data sheet), taken as the rate
+# of the kernel's 32-bit integer operations
+H100_INT32_OPS_PER_S = 67e12
+
+# name, rows, padded row length, k, strand plane, length of every row (None:
+# ragged, k..L).  The index tiers are the row plans of `build_index_device`
+# (2^25 bases a step), the rest are slices of 150-base reads.
+MAIN_SHAPES = (
+    ("index tier 8192 k=55, strand", 4096, 8192, 55, True, 8192),
+    ("index tier 2048 k=55, strand", 16384, 2048, 55, True, 2048),
+    ("index tier 256 k=55, strand", 131072, 256, 55, True, None),
+    ("prefilter sub-slice k=55", 65536, 152, 55, False, 150),
+    ("mapper sub-slice k=55, strand", 131072, 152, 55, True, 150),
+    ("ReadBatch k=56", 65536, 256, 56, False, 150),
+    ("ReadStore chunk k=22", 262144, 152, 22, False, 150),
+    ("ReadStore chunk k=56", 262144, 152, 56, False, 150),
+)
+
+
+def random_packed(seed: int, R: int, L: int, k: int, read_len: int | None = None,
+                  n_rate: float = 0.03):
+    """Packed wire arrays (pc, pn, lengths, L) of R random reads in an (R, L)
+    batch: ragged lengths in [k, L] (or all `read_len`), ~n_rate N bases."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (R, L), dtype=np.uint8)
+    if read_len is None:
+        lengths = rng.integers(k, L + 1, R).astype(np.int32)
+        lengths[: R // 8] = L
+    else:
+        lengths = np.full(R, read_len, np.int32)
+    pos = np.arange(L)[None, :]
+    codes[pos >= lengths[:, None]] = 0
+    n_mask = (rng.random((R, L), dtype=np.float32) < n_rate) & (pos < lengths[:, None])
+    return ReadBatch(codes=codes, lengths=lengths, n_mask=n_mask).packed()
+
+
+def canonical_windows_bound(R: int, L: int, k: int,
+                            strand: bool = False) -> tuple[float, str]:
+    """Least time (ms) an H100 needs for one canonical-windows call, and
+    what bounds it: each input byte read once, each output byte written once
+    (bytes; one more per window with the strand plane), or ~16 integer
+    operations per k-mer word and per window."""
+    W = (k + 15) // 16
+    P = L - k + 1
+    nbytes = (R * ((L + 3) // 4 + (L + 7) // 8 + 4)
+              + R * P * (8 * ((W + 1) // 2) + 1 + (1 if strand else 0)))
+    ops = R * P * 16 * (W + 1)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def key_words(keys: torch.Tensor) -> torch.Tensor:
+    """(nK, N) int64 sort keys -> (2nK, N) int64 holding the uint32 words."""
+    u = keys ^ torch.iinfo(torch.int64).min
+    return torch.cat([(u >> 32) & 0xFFFFFFFF, u & 0xFFFFFFFF])
+
+
+def max_abs_err(got, ref) -> int:
+    """Largest difference between two (keys, valid[, was_rc]) results: of the
+    keys' uint32 words, else the count of differing flags."""
+    if len(got) != len(ref) or any(a.shape != b.shape for a, b in zip(got, ref)):
+        raise ValueError("the two results differ in shape")
+    err = int((key_words(got[0]) - key_words(ref[0])).abs().max())
+    for a, b in zip(got[1:], ref[1:]):
+        err = max(err, int((a != b).sum()))
+    return err
+
+
+def time_ms(fn, dev, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call: CUDA events on the card, else the host clock."""
+    for _ in range(warmup):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters

@@ -1,6 +1,7 @@
 """Card tests of the PyTorch/CUDA port: the CUDA kernel against its plain
-PyTorch version, and the CUDA path of counting and construction against the
-port's CPU path (which tests/test_torch_*.py hold to the JAX package).
+PyTorch version (with and without the strand plane), and the CUDA path of
+counting, construction and read mapping against the port's CPU path (which
+tests/test_torch_*.py hold to the JAX package).
 
 Run on a machine with an NVIDIA card:  python -m pytest -m gpu tests/test_torch_gpu.py
 Without a card every test here skips.
@@ -69,6 +70,24 @@ def test_kernel_matches_plain(cuda, k):
     assert torch.equal(valid.cpu(), ref_valid)
 
 
+@pytest.mark.parametrize("k", [13, 21, 33, 55, 64, 128])
+def test_strand_kernel_matches_plain(cuda, k):
+    """The strand plane, on odd shapes and on rows that start off a 16-byte
+    line (a slice of a larger batch)."""
+    pc, pn, lengths, L = _random_batch(k, 67, 157, k).packed()
+    args = [torch.from_numpy(a) for a in (pc, pn, lengths)]
+    for lo in (0, 3):
+        ref = CK.canonical_window_keys_plain(*(a[lo:] for a in args), L, k, strand=True)
+        before = CK.canonical_window_keys.launches
+        got = CK.canonical_window_keys(*(a.to(cuda)[lo:] for a in args), L, k, strand=True)
+        torch.cuda.synchronize()
+        assert CK.canonical_window_keys.launches == before + 1
+        assert len(got) == 3 and got[2].dtype == torch.bool
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
+        assert got[2].any() and not (got[2] & ~got[1]).any()
+
+
 def test_kernel_rejects_bad_input(cuda):
     pc, pn, lengths, L = _random_batch(0, 8, 64, 21).packed()
     pc, pn, lengths = (torch.from_numpy(a).to(cuda) for a in (pc, pn, lengths))
@@ -119,3 +138,35 @@ def test_condense_ranking_on_cuda(cuda):
     got = condense(idx, p1, device=cuda)
     for f in GRAPH_FIELDS:
         assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+
+
+def test_mapping_cuda_matches_cpu(cuda, monkeypatch):
+    """Device index build, search and vote, and the tip prefilter: the card
+    against the port's CPU path, exactly."""
+    from spades_tpu_torch.alignment.mapper import MappingEngine, build_edge_index
+    from spades_tpu_torch.parallel import sharded_mapping as SM
+
+    monkeypatch.setenv("SPADES_HOST_COUNT_WINDOWS", "1")
+    monkeypatch.setenv("SPADES_DEVICE_MAP_READS", "1")
+    monkeypatch.setenv("SPADES_DEVICE_INDEX_POOL", "1")
+    monkeypatch.setenv("SPADES_MAP_SUBCHUNK", "256")
+    reads, _ = _reads(31, G=6000, n=900)
+    reads[3] = reads[3][:40] + "NN" + reads[3][42:]
+    reads[5] = reads[5][:15]
+    for k in (21, 55):
+        g = construct_graph(reads, k, batch_size=256, device="cpu").graph
+        store = ReadStore.build(reads, chunk_reads=512)
+        cpu = MappingEngine(g, device="cpu")
+        ref = cpu.map_store(store)
+        before = CK.canonical_window_keys.launches
+        eng = MappingEngine(g, device=cuda)
+        got = eng.map_store(store)
+        assert CK.canonical_window_keys.launches > before and eng._index is None
+        for a, b in zip(eng._device_index(), cpu._device_index()):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(got, ref):
+            assert np.array_equal(a, b)
+        assert (got[0] >= 0).mean() > 0.9
+        tips = build_edge_index(g).kmers[::7]
+        assert np.array_equal(SM.hit_filter_store(store, tips, k, device=cuda),
+                              SM.hit_filter_store(store, tips, k, device="cpu"))

@@ -180,3 +180,44 @@ def test_packed_chunk_device_upload_is_cached():
     assert all(isinstance(t, torch.Tensor) for t in first)
     assert c.device(torch.device("cpu")) is first
     assert np.array_equal(first[0].numpy(), c.pc)
+
+
+@pytest.mark.parametrize("k", [13, 21, 33, 55])
+def test_canonical_windows_strand_matches_jax(k):
+    """The strand bit, in the plain torch function and in the kernel wrapper's
+    plain path (where it is masked by `valid`)."""
+    R, L = 24, 120
+    codes, lengths, n_mask = _inputs(200 + k, R, L, k)
+    jc, jv, jrc = JK.canonical_windows_strand(jnp.asarray(codes), jnp.asarray(lengths),
+                                              jnp.asarray(n_mask), k)
+    tc, tv, trc = TK.canonical_windows_strand(_t(codes), _t(lengths), _t(n_mask), k)
+    assert trc.dtype == torch.bool
+    assert np.array_equal(tc.numpy(), np.asarray(jc).astype(np.int64))
+    assert np.array_equal(tv.numpy(), np.asarray(jv))
+    assert np.array_equal(trc.numpy(), np.asarray(jrc))
+    assert trc.any() and not trc.all()
+    pc, pn, ln, L2 = JR.ReadBatch(codes=codes, lengths=lengths, n_mask=n_mask).packed()
+    before = CK.canonical_window_keys.launches
+    keys, valid, was_rc = CK.canonical_window_keys(_t(pc), _t(pn), _t(ln), L2, k, strand=True)
+    assert CK.canonical_window_keys.launches == before   # no kernel on the CPU
+    assert np.array_equal(valid.numpy(), np.asarray(jv))
+    assert np.array_equal(was_rc.numpy(), np.asarray(jrc) & np.asarray(jv))
+    keys2, valid2 = CK.canonical_window_keys(_t(pc), _t(pn), _t(ln), L2, k)
+    assert torch.equal(keys, keys2) and torch.equal(valid, valid2)
+    v = np.asarray(jv).reshape(-1)
+    words = np.asarray(jc).reshape(-1, JK.kmer_words(k))
+    assert np.array_equal(keys.T.numpy()[v], TK.words_to_keys(words[v]))
+
+
+@pytest.mark.parametrize("rc", [False, True])
+@pytest.mark.parametrize("k", [5, 16, 21, 33, 55])
+def test_pack_windows_matches_jax(k, rc):
+    codes, _, _ = _inputs(300 + k, 10, 80, k)
+    jw = JK.pack_windows(jnp.asarray(codes), k, rc=rc)
+    tw = TK.pack_windows(_t(codes), k, rc=rc)
+    assert tw.dtype == torch.int64 and tw.shape == (10, 80 - k + 1, TK.kmer_words(k))
+    assert np.array_equal(tw.numpy(), np.asarray(jw).astype(np.int64))
+    if not rc:   # the forward pack of window 0 is the host pack of its bases
+        assert np.array_equal(tw[:, 0].numpy(), TK.pack(codes[:, :k]).astype(np.int64))
+    with pytest.raises(ValueError):
+        TK.pack_windows(_t(codes[:, : k - 1]), k)
