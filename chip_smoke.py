@@ -9,15 +9,23 @@
    reads at every k from 13 to 128 and at every shape the main path gives
    it, with and without the strand plane; tolerance 0 (the work is integer),
    with CUDA-event times beside the memory bound.
-3. The main path at isolate scale: a synthetic 5 Mb genome with planted
-   repeats, 150 bp FR pairs at 40x.  The `gbuilder` CLI at k=55, then
-   `construct_graph` over one `ReadStore` at k=21 and at k=55 with the k=21
-   unitigs as structure (the K feed-forward of a multi-K run).  The result
-   is checked by invariants, and a subset against the port's CPU path.
+3. Graph construction at isolate scale: a synthetic 5 Mb genome with planted
+   repeats, 150 bp FR pairs at 40x, through the `gbuilder` CLI at k=55.  The
+   result is checked by invariants, and a subset against the port's CPU path.
 4. Read mapping on that k=55 graph: `MappingEngine.map_store` over every
-   read of the store (device-built edge index, search, vote) and the tip
+   read of one `ReadStore` (device-built edge index, search, vote) and the tip
    prefilter `hit_filter_store`, checked against the sequence pool, the host
    index build and the port's CPU path, with the time of each part.
+5. Assembly of the same isolate: `run_assembly(k_list=[21, 33, 55],
+   disable_rr=True)`, reads to contigs with everything but repeat
+   resolution.  Graph invariants after every stage, the native library, the
+   device index of the simplified k=55 graph (its upper row tiers) against
+   the host build, contigs against the genome, the output files.
+6. Gap closing: a 300 kb genome whose pairs are thinned at planted positions
+   so that k=55 tips overlap by 10 to 45 bases, assembled at k=55 on the card
+   and on the CPU; gaps must close and the two results must be equal.
+7. Every shape phases 3 to 6 gave the kernel that phase 2 did not hold yet,
+   against the plain version and timed.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
@@ -27,6 +35,8 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import shutil
@@ -189,7 +199,6 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
     import torch
 
     from spades_tpu_torch.core.reads import ReadStore
-    from spades_tpu_torch.io.contigs import extract_contigs
     from spades_tpu_torch.io.fastx import read_sequences
     from spades_tpu_torch.ops import cuda_kernels as CK
     from spades_tpu_torch.pipeline.construction import construct_graph
@@ -197,7 +206,7 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
 
     wall = {}
     t0 = time.perf_counter()
-    _genome, r1, r2 = synthetic.make_e2e_dataset(genome_size, coverage, rl, 0.003, seed)
+    genome, r1, r2 = synthetic.make_e2e_dataset(genome_size, coverage, rl, 0.003, seed)
     wall["make_data_s"] = time.perf_counter() - t0
     n_pairs = r1.shape[0]
     n_reads = 2 * n_pairs
@@ -206,7 +215,6 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
     synthetic.write_fastq(paths[0], r1, 1)
     synthetic.write_fastq(paths[1], r2, 2)
     wall["write_fastq_s"] = time.perf_counter() - t0
-    del r1, r2
 
     # -- the main path: launch counts from 0, read right after ---------------
     if dev.type == "cuda":
@@ -226,22 +234,6 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
     t0 = time.perf_counter()
     store = ReadStore.build(reads)
     wall["read_store_build_s"] = time.perf_counter() - t0
-    before = CK.canonical_window_keys.launches
-    t0 = time.perf_counter()
-    res21 = construct_graph(None, 21, read_store=store, device=dev)
-    sync(dev)
-    wall["store_k21_s"] = time.perf_counter() - t0
-    launches["store_k21"] = CK.canonical_window_keys.launches - before
-    t0 = time.perf_counter()
-    unitigs21 = [c.seq for c in extract_contigs(res21.graph)]
-    wall["k21_unitigs_s"] = time.perf_counter() - t0
-    before = CK.canonical_window_keys.launches
-    t0 = time.perf_counter()
-    res55 = construct_graph(None, 55, read_store=store, extra_sequences=unitigs21,
-                            device=dev)
-    sync(dev)
-    wall["store_k55_s"] = time.perf_counter() - t0
-    launches["store_k55"] = CK.canonical_window_keys.launches - before
     main_launches = CK.canonical_window_keys.launches
     peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
                 else None)
@@ -252,19 +244,7 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
               f"{name}: the canonical-windows kernel was not launched")
     check(res_g.p1_counts.total == n_reads * (rl - 55),
           "gbuilder k=55: counted windows != reads x (150 - k)")
-    check(res21.p1_counts.total == n_reads * (rl - 21),
-          "store k=21: counted windows != reads x (150 - k)")
-    check(res55.p1_counts.total == n_reads * (rl - 55),
-          "store k=55: counted windows != reads x (150 - k)")
-    # the k=21 unitigs only add zero-count structure rows: the read-counted
-    # rows are exactly the gbuilder (ReadBatch path) table
-    p55 = res55.p1_counts
-    nz = p55.counts > 0
-    check(np.array_equal(p55.words[nz], res_g.p1_counts.words)
-          and np.array_equal(p55.counts[nz], res_g.p1_counts.counts),
-          "k=55: ReadStore and ReadBatch (gbuilder) paths counted differently")
-    for name, res in (("gbuilder_k55", res_g), ("store_k21", res21), ("store_k55", res55)):
-        graph_checks(name, res.graph)
+    graph_checks("gbuilder_k55", res_g.graph)
     n_seg = len(res_g.graph.canonical_edge_ids())
     with open(os.path.join(out, "assembly_graph_with_scaffolds.gfa")) as fh:
         gfa_s = sum(1 for ln in fh if ln.startswith("S\t"))
@@ -297,22 +277,18 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
         "dataset": {"genome_nt": genome_size, "coverage": coverage, "read_len": rl,
                     "pairs": n_pairs, "error_rate": 0.003, "seed": seed},
         "wall_s": wall,
-        "timings": {"gbuilder_k55": res_g.timings, "store_k21": res21.timings,
-                    "store_k55": res55.timings},
+        "timings": {"gbuilder_k55": res_g.timings},
         "launches": launches,
-        "unique_p1": {"gbuilder_k55": res_g.p1_counts.num_unique,
-                      "store_k21": res21.p1_counts.num_unique,
-                      "store_k55": p55.num_unique},
-        "structure_rows_k55": int((~nz).sum()),
-        "edges": {"gbuilder_k55": int(res_g.graph.e_start.shape[0]),
-                  "store_k21": int(res21.graph.e_start.shape[0]),
-                  "store_k55": int(res55.graph.e_start.shape[0])},
+        "unique_p1": {"gbuilder_k55": res_g.p1_counts.num_unique},
+        "edges": {"gbuilder_k55": int(res_g.graph.e_start.shape[0])},
         "gfa_segments": gfa_s,
         "subset_pairs": sub,
         "subset_edges": int(got.graph.e_start.shape[0]),
         "peak_device_gib": peak_gib,
     }
-    return rec, main_launches, {"store": store, "graph": res55.graph, "n_pairs": n_pairs}
+    return rec, main_launches, {"store": store, "graph": res_g.graph, "n_pairs": n_pairs,
+                                "p1_k55": res_g.p1_counts, "genome": genome,
+                                "r1": r1, "r2": r2}
 
 
 # ---------------------------------------------------------------------------
@@ -446,15 +422,7 @@ def phase_mapping(dev, state, subset_pairs: int, seed: int, n_tips: int = 10_000
     t0 = time.perf_counter()
     host_index = build_edge_index(g, k)
     wall["host_index_build_s"] = time.perf_counter() - t0
-    W = K.kmer_words(k)
-    check(np.array_equal(K.keys_to_words(prep[0].T.contiguous().cpu().numpy(), W),
-                         host_index.kmers),
-          "device-built index: k-mers differ from build_edge_index")
-    for name, dev_col, host_col in (("edge", prep[1], host_index.edge),
-                                    ("offset", prep[2], host_index.offset),
-                                    ("strand", prep[3], host_index.strand)):
-        check(np.array_equal(dev_col.cpu().numpy(), host_col),
-              f"device-built index: {name} differs from build_edge_index")
+    check_index_against_host(f"k={k} graph", prep, host_index, k)
 
     # the card against the port's CPU path on the first pairs
     sub_n = min(subset_pairs, n_pairs)
@@ -488,9 +456,392 @@ def phase_mapping(dev, state, subset_pairs: int, seed: int, n_tips: int = 10_000
     return rec, map_launches
 
 
-def kernels_line(kernel_rec: dict, launches: dict) -> dict:
-    """The per-kernel summary: launches summed over the driven paths, times
-    at the largest main-path shape (the last one without the strand plane)."""
+# ---------------------------------------------------------------------------
+# 5. assembly of the isolate: reads to contigs without repeat resolution
+# ---------------------------------------------------------------------------
+
+STAGE_IDS = ("construction", "ec_threshold_finder", "raw_simplification",
+             "gap_closer_early", "simplification", "gap_closer_late", "contig_output")
+OUTPUT_FILES = ("contigs.fasta", "scaffolds.fasta", "assembly_graph_with_scaffolds.gfa",
+                "assembly_graph.fastg", "contigs.paths", "scaffolds.paths")
+
+
+@contextlib.contextmanager
+def after_every_stage(hook):
+    """Call hook(stage, ctx) after each stage of every `StageManager` run."""
+    from spades_tpu_torch.pipeline import spades_stages as S
+
+    classes = (S.Construction, S.GenomicInfoFiller, S.RawSimplification, S.GapClosing,
+               S.Simplification, S.ContigOutput)
+    saved = [(cls, cls.run) for cls in classes]
+
+    def hooked(run):
+        def run_then_hook(self, ctx):
+            run(self, ctx)
+            hook(self, ctx)
+        return run_then_hook
+
+    for cls, run in saved:
+        cls.run = hooked(run)
+    try:
+        yield
+    finally:
+        for cls, run in saved:
+            cls.run = run
+
+
+def launches_by_caller(shapes) -> dict:
+    """Launch counts of a path by what launched them, told apart by shape:
+    (k+1)-mer counting runs at even k without the strand plane; at odd k
+    without it, the prefilter runs over chunks of 150-base reads and the
+    gap closer's count of its tip regions over rows of 456 bases or more;
+    the index build and the mapper ask for the strand plane (index rows are
+    256, 2,048 or 8,192 bases wide, read chunks are not)."""
+    out = collections.Counter()
+    for (_R, L, k, strand), n in shapes.items():
+        if strand:
+            who = "index_build" if L in (256, 2048, 8192) else "map_store"
+        elif k % 2 == 0:
+            who = "count"
+        else:       # the prefilter over read chunks, or the count of the tip regions
+            who = "hit_filter" if L < 256 else "tip_region_count"
+        out[f"{who} k={k}"] += n
+    return dict(sorted(out.items()))
+
+
+def assembly_stats(contigs) -> dict:
+    lens = sorted((len(c.seq) for c in contigs), reverse=True)
+    total = sum(lens)
+    acc, n50 = 0, 0
+    for n in lens:
+        acc += n
+        if acc * 2 >= total:
+            n50 = n
+            break
+    return {"contigs": len(lens), "total": total, "n50": n50,
+            "longest": lens[0] if lens else 0}
+
+
+def substitutions_against(seq: str, strands, err: float, anchor: int = 32,
+                          stride: int = 200):
+    """Fewest substitutions that lay `seq` onto one of `strands` (the genome
+    and its reverse complement), or None when no placement needs at most
+    max(2, err * len(seq)): the reads carry substitutions only, so a contig
+    that is right differs from the genome by a few surviving ones, and one
+    that joins two places differs in most bases past the joint."""
+    import numpy as np
+
+    if any(seq in g for g in strands):
+        return 0
+    a = np.frombuffer(seq.encode(), np.uint8)
+    best = None
+    for g in strands:
+        garr = np.frombuffer(g.encode(), np.uint8)
+        for off in range(0, len(seq) - anchor + 1, stride):
+            at = g.find(seq[off : off + anchor])
+            while at >= 0:
+                lo = at - off
+                if lo >= 0 and lo + len(seq) <= len(g):
+                    d = int((garr[lo : lo + len(seq)] != a).sum())
+                    best = d if best is None else min(best, d)
+                at = g.find(seq[off : off + anchor], at + 1)
+    return best if best is not None and best <= max(2, err * len(seq)) else None
+
+
+def check_index_against_host(name, prep, host_index, k) -> None:
+    """A device-built index (`MappingEngine._device_index`) equals the host's
+    `build_edge_index` of the same graph, row for row."""
+    import numpy as np
+
+    from spades_tpu_torch.core import kmers as K
+
+    check(np.array_equal(K.keys_to_words(prep[0].T.contiguous().cpu().numpy(),
+                                         K.kmer_words(k)), host_index.kmers),
+          f"{name}: device-built index k-mers differ from build_edge_index")
+    for col, dev_col, host_col in (("edge", prep[1], host_index.edge),
+                                   ("offset", prep[2], host_index.offset),
+                                   ("strand", prep[3], host_index.strand)):
+        check(np.array_equal(dev_col.cpu().numpy(), host_col),
+              f"{name}: device-built index {col} differs from build_edge_index")
+
+
+def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
+                   rl: int = 150, n_sample: int = 200, total_tolerance: float = 0.02):
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch import native
+    from spades_tpu_torch.alignment.mapper import MappingEngine, build_edge_index
+    from spades_tpu_torch.core.reads import ReadStore
+    from spades_tpu_torch.io.gfa import read_gfa
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.pipeline import spades_stages as S
+    from spades_tpu_torch.pipeline import stages as ST
+    from spades_tpu_torch.pipeline.run import run_assembly
+
+    check(native.lib() is not None,
+          "the native library did not load: simplification would take the numpy loop")
+    genome, r1, r2 = state["genome"], state["r1"], state["r2"]
+    k_last = k_list[-1]
+    lefts, rights = list(r1), list(r2)
+    per_stage = {}
+    simplified = {}
+
+    def hook(stage, ctx):
+        t_hook = time.perf_counter()
+        g = ctx.graph
+        g.check_invariants()
+        graph_checks(f"k={ctx.k} {stage.id}", g)
+        row = per_stage[f"k={ctx.k} {stage.id}"] = {
+            "edge_pairs": int(len(g.canonical_edge_ids())),
+            "launches": CK.canonical_window_keys.launches,     # running total
+        }
+        if stage.id == "construction" and ctx.k == 55 and "p1_k55" in state:
+            # prev-K contigs only add zero-count structure rows: the
+            # read-counted rows are exactly the gbuilder (ReadBatch path) table
+            p1, ref = ctx.p1_counts, state["p1_k55"]
+            nz = p1.counts > 0
+            check(np.array_equal(p1.words[nz], ref.words)
+                  and np.array_equal(p1.counts[nz], ref.counts),
+                  "k=55: the ReadStore and ReadBatch (gbuilder) paths counted differently")
+            simplified["structure_rows_k55"] = int((~nz).sum())
+        if stage.id == "gap_closer_late" and ctx.k == k_last and ctx._me is not None:
+            # the closer's own engine on the simplified graph, where it mapped
+            simplified["index_in_run"] = dict(ctx._me.index_timings)
+        # this check's own seconds, which `STAGE_TIMES` counts into the stage
+        row["check_s"] = time.perf_counter() - t_hook
+
+    # -- the assembly path: launch counts from 0, read right after -----------
+    ST.STAGE_TIMES.clear()
+    S.CONSTRUCT_PHASES.clear()
+    S.GAP_CLOSER_STATS.clear()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    CK.canonical_window_keys.launches = 0
+    CK.canonical_window_keys.launch_shapes = collections.Counter()
+    out = os.path.join(workdir, "assembly")
+    t0 = time.perf_counter()
+    with after_every_stage(hook):
+        res = run_assembly(lefts + rights, list(k_list), out, paired_libs=[(lefts, rights)],
+                           disable_rr=True, read_length=rl, device=dev, checkpoints="none")
+    sync(dev)
+    wall_s = time.perf_counter() - t0
+    launches = CK.canonical_window_keys.launches
+    shapes = CK.canonical_window_keys.launch_shapes
+    CK.canonical_window_keys.launch_shapes = None
+    peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                else None)
+
+    # -- the index of the simplified graph: built on the device, it must use the
+    # upper row tiers and equal the host build; all left mates map onto it ----
+    engine = MappingEngine(res.graph, device=dev)
+    t0 = time.perf_counter()
+    engine._device_index()
+    sync(dev)
+    simplified["index_build_s"] = time.perf_counter() - t0
+    simplified["index"] = dict(engine.index_timings)
+    t0 = time.perf_counter()
+    check_index_against_host(f"k={k_last} simplified graph", engine._device_index(),
+                             build_edge_index(res.graph, k_last), k_last)
+    simplified["host_index_check_s"] = time.perf_counter() - t0
+    left = ReadStore.build(lefts)
+    t0 = time.perf_counter()
+    edge, _start, _votes = engine.map_store(left, force_device=True)
+    sync(dev)
+    simplified["map_left_mates_s"] = time.perf_counter() - t0
+    simplified["left_mates"] = int(left.n)
+    simplified["left_mates_mapped"] = int((edge >= 0).sum())
+    engine.release()
+    del left, edge
+
+    # -- checks ---------------------------------------------------------------
+    check(launches > 0 or dev.type == "cpu",
+          "assembly: the canonical-windows kernel was not launched")
+    check([(k, s) for k, s, _ in ST.STAGE_TIMES] == [(k, s) for k in k_list for s in STAGE_IDS],
+          f"assembly: the stages that ran are {[(k, s) for k, s, _ in ST.STAGE_TIMES]}")
+    check(len(per_stage) == len(k_list) * len(STAGE_IDS), "assembly: a stage was not checked")
+    tier_rows = simplified.get("index", {}).get("tier_rows", {})
+    check(simplified.get("index", {}).get("index_rows", 0) > 0,
+          "the index of the simplified graph was not built on the device")
+    for tier in (2048, 8192):
+        check(tier_rows.get(tier, 0) > 0,
+              f"the {tier}-base index tier got no row on the simplified k={k_last} graph")
+    check(simplified["left_mates_mapped"] >= 0.97 * simplified["left_mates"],
+          f"only {simplified['left_mates_mapped']} of {simplified['left_mates']} left mates "
+          "map onto the simplified graph")
+    stats = assembly_stats(res.contigs)
+    check(abs(stats["total"] - len(genome)) <= total_tolerance * len(genome),
+          f"contigs total {stats['total']} nt, not within {total_tolerance:.0%} of the "
+          f"genome's {len(genome)}")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fwd = acgt[genome].tobytes().decode()
+    rev = acgt[(3 - genome)[::-1]].tobytes().decode()
+    long_contigs = [c for c in res.contigs if len(c.seq) >= 1000]
+    check(len(long_contigs) > 0, "assembly: no contig of 1 kb or more")
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(len(long_contigs), min(n_sample, len(long_contigs)), replace=False)
+    subs = {long_contigs[i].name: substitutions_against(long_contigs[i].seq, (fwd, rev), 0.003)
+            for i in picks}
+    wrong = [name for name, d in subs.items() if d is None]
+    check(not wrong, f"{len(wrong)} of {len(picks)} sampled contigs of 1 kb or more lie "
+                     f"nowhere in the genome or its reverse complement: {wrong[:5]}")
+    for sub in ("", f"K{k_last}"):
+        for name in OUTPUT_FILES:
+            path = os.path.join(out, sub, name)
+            check(os.path.exists(path) and os.path.getsize(path) > 0, f"{path} is missing")
+    parsed = read_gfa(os.path.join(out, "assembly_graph_with_scaffolds.gfa"))
+    check(len(parsed.segments) == len(res.graph.canonical_edge_ids()),
+          "read_gfa: the segments read back are not the graph's edge pairs")
+    check(len(parsed.paths) == len(res.contigs), "read_gfa: the paths read back are not the contigs")
+
+    rec = {
+        "phase": "assembly",
+        "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "k_list": list(k_list), "reads": int(2 * r1.shape[0]), "wall_s": wall_s,
+        "stage_times": {f"k={k} {s}": t for k, s, t in ST.STAGE_TIMES},
+        "construction": {f"k={k}": tm for k, tm in S.CONSTRUCT_PHASES},
+        "gap_closer": {f"k={k} {s}": st for k, s, st in S.GAP_CLOSER_STATS},
+        "per_stage": per_stage,
+        "simplified_graph": simplified,
+        "launches": launches,
+        "launches_by_caller": launches_by_caller(shapes),
+        "peak_device_gib": peak_gib,
+        "contig_stats": stats, "contigs_1kb": len(long_contigs),
+        "contigs_checked": int(len(picks)),
+        "contigs_exact": sum(1 for d in subs.values() if d == 0),
+        "most_substitutions": max(subs.values()),
+        "gfa_segments": len(parsed.segments),
+    }
+    return rec, launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# 6. gap closing, card against CPU
+# ---------------------------------------------------------------------------
+
+def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage: int = 40,
+              n_gaps: int = 30, k: int = 55, rl: int = 150):
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.pipeline import spades_stages as S
+    from spades_tpu_torch.pipeline.run import run_assembly
+    from spades_tpu_torch.tools import synthetic
+
+    _genome, r1, r2, gaps = synthetic.make_gapped_dataset(genome_size, coverage, rl, 0.003,
+                                                          seed + 1, n_gaps)
+    lefts, rights = list(r1), list(r2)
+    results = {}
+    shapes = collections.Counter()
+    launches = 0
+    wall = {}
+    for where in (dev, torch.device("cpu")):
+        if where.type in results:        # a CPU rehearsal: one run is both
+            continue
+        S.GAP_CLOSER_STATS.clear()
+        out = os.path.join(workdir, f"gap_{where.type}")
+        if where == dev:
+            # -- the gap path: launch counts from 0, read right after ---------
+            CK.canonical_window_keys.launches = 0
+            CK.canonical_window_keys.launch_shapes = shapes
+        t0 = time.perf_counter()
+        res = run_assembly(lefts + rights, [k], out, paired_libs=[(lefts, rights)],
+                           disable_rr=True, read_length=rl, device=where, checkpoints="none")
+        sync(where)
+        wall[f"{where.type}_s"] = time.perf_counter() - t0
+        if where == dev:
+            launches = CK.canonical_window_keys.launches
+            CK.canonical_window_keys.launch_shapes = None
+        with open(os.path.join(out, "contigs.fasta"), "rb") as fh:
+            fasta = fh.read()
+        results[where.type] = (res, fasta, [(s, dict(st)) for _, s, st in S.GAP_CLOSER_STATS])
+
+    got = results[dev.type]
+    ref = results["cpu"]
+    closed = sum(st["closed"] for _, st in got[2])
+    check(launches > 0 or dev.type == "cpu",
+          "gap phase: the canonical-windows kernel was not launched")
+    check(closed > 0, "gap phase: the gap closer closed no gap")
+    check([(s, st["candidates"], st["closed"]) for s, st in got[2]]
+          == [(s, st["candidates"], st["closed"]) for s, st in ref[2]],
+          "gap phase: candidates or closed gaps differ between the device and the CPU")
+    for f in GRAPH_FIELDS:
+        check(np.array_equal(getattr(got[0].graph, f), getattr(ref[0].graph, f)),
+              f"gap phase: device and CPU graphs differ in {f}")
+    check(got[1] == ref[1], "gap phase: device and CPU contigs.fasta differ")
+    got[0].graph.check_invariants()
+
+    rec = {
+        "phase": "gap_closing",
+        "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "dataset": {"genome_nt": genome_size, "coverage": coverage, "read_len": rl,
+                    "pairs": int(r1.shape[0]), "planted_gaps": int(len(gaps)),
+                    "overlaps": [int(gaps[:, 1].min()), int(gaps[:, 1].max())],
+                    "seed": seed + 1},
+        "k": k, "wall_s": wall, "closed": closed,
+        "gap_closer": {s: st for s, st in got[2]},
+        "contig_stats": assembly_stats(got[0].contigs),
+        "launches": launches, "launches_by_caller": launches_by_caller(shapes),
+    }
+    return rec, launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# 7. the shapes the paths gave the kernel that phase 2 did not hold
+# ---------------------------------------------------------------------------
+
+def phase_observed_shapes(dev, observed, held, max_groups: int = 40) -> dict:
+    """`observed` counts launches by (R, L, k, strand).  For every (L, k,
+    strand) among them, its largest R is checked against the plain version
+    and timed, unless `held` (the shapes of phase 2) has that very shape."""
+    import torch
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.tools import kernel_shapes as KS
+
+    groups = {}
+    for (R, L, k, strand), n in observed.items():
+        g = groups.setdefault((L, k, strand), {"R": 0, "launches": 0, "distinct_R": 0})
+        g["R"] = max(g["R"], R)
+        g["launches"] += n
+        g["distinct_R"] += 1
+    held = {(R, L, k, strand) for _name, R, L, k, strand, _len in held}
+    todo = sorted((key for key, g in groups.items() if (g["R"], *key) not in held),
+                  key=lambda key: -groups[key]["launches"])
+    check(len(todo) <= max_groups,
+          f"{len(todo)} kernel shape groups to check, more than {max_groups}")
+    shapes = []
+    for i, (L, k, strand) in enumerate(todo):
+        g = groups[(L, k, strand)]
+        R = g["R"]
+        pc, pn, ln, L = KS.random_packed(5000 + i, R, L, k, None, 0.0)
+        args = [torch.from_numpy(a).to(dev) for a in (pc, pn, ln)]
+        ref = CK.canonical_window_keys_plain(*args, L, k, strand=strand)
+        got = CK.canonical_window_keys(*args, L, k, strand=strand)
+        sync(dev)
+        err = KS.max_abs_err(got, ref)
+        check(err == 0, f"observed shape {R}x{L} k={k}: kernel differs from its plain "
+                        f"version (max abs err {err})")
+        del ref, got
+        ms = KS.time_ms(lambda: CK.canonical_window_keys(*args, L, k, strand=strand), dev, 10)
+        plain_ms = KS.time_ms(
+            lambda: CK.canonical_window_keys_plain(*args, L, k, strand=strand), dev, 2)
+        bound_ms, bound_by = KS.canonical_windows_bound(R, L, k, strand)
+        shapes.append({"R": R, "L": L, "k": k, "strand": strand, "launches": g["launches"],
+                       "distinct_R": g["distinct_R"], "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return {"phase": "observed_shapes", "tolerance": 0,
+            "groups_seen": len(groups), "groups_held_before": len(groups) - len(todo),
+            "shapes": shapes}
+
+
+def kernels_line(kernel_rec: dict, observed_rec: dict, launches: dict) -> dict:
+    """The per-kernel summary: launches by driven path, times at the largest
+    main-path shape (the last one without the strand plane), the largest
+    error over every shape held against the plain version."""
     shapes = kernel_rec["shapes"]
     top = [s for s in shapes if not s["strand"]][-1]
     return {"kernels": [{
@@ -500,7 +851,7 @@ def kernels_line(kernel_rec: dict, launches: dict) -> dict:
         "replaces": "spades_tpu/ops/pallas_kernels.py:40",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_abs_err": max(s["max_abs_err"] for s in shapes + observed_rec["shapes"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
@@ -511,24 +862,50 @@ def kernels_line(kernel_rec: dict, launches: dict) -> dict:
 
 
 def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
-        main_shapes=None, rand_R: int = 2048):
-    """All phases on `dev`; returns the kernels line.  Raises on any failure."""
+        main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
+        gap_count: int = 30, total_tolerance: float = 0.02):
+    """All phases on `dev`; returns the kernels line.  Raises on any failure.
+    total_tolerance: how far the contigs' total may be from the genome size
+    (a rehearsal on a small genome, most of it planted repeats, needs more)."""
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.tools import kernel_shapes as KS
+
     t0 = time.perf_counter()
     emit(phase_toolchain(dev))
     kern = phase_kernels(dev, main_shapes, rand_R=rand_R)
     emit(kern)
+    observed = collections.Counter()
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
     try:
+        CK.canonical_window_keys.launch_shapes = observed
         rec, main_launches, state = phase_main_path(dev, workdir, genome_size, coverage,
                                                     subset_pairs, seed)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        rec, map_launches = phase_mapping(dev, state, subset_pairs, seed)
+        CK.canonical_window_keys.launch_shapes = None
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        del state["store"], state["graph"]
+        rec, asm_launches, shapes = phase_assembly(dev, workdir, state, seed,
+                                                   total_tolerance=total_tolerance)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        del state
+        rec, gap_launches, shapes = phase_gap(dev, workdir, seed, gap_genome,
+                                              n_gaps=gap_count)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
     finally:
+        CK.canonical_window_keys.launch_shapes = None
         shutil.rmtree(workdir, ignore_errors=True)
-    rec["total_s"] = time.perf_counter() - t0
-    emit(rec)
-    rec, map_launches = phase_mapping(dev, state, subset_pairs, seed)
-    rec["total_s"] = time.perf_counter() - t0
-    emit(rec)
-    return kernels_line(kern, {"construction": main_launches, "mapping": map_launches})
+    seen = phase_observed_shapes(dev, observed, main_shapes or KS.MAIN_SHAPES)
+    seen["total_s"] = time.perf_counter() - t0
+    emit(seen)
+    return kernels_line(kern, seen, {"construction": main_launches, "mapping": map_launches,
+                                     "assembly": asm_launches, "gap_closing": gap_launches})
 
 
 def main(argv=None) -> int:

@@ -163,6 +163,11 @@ class MappingEngine:
                 self._prep = prepare_index_device(self.index, self.g, self.device)
         return self._prep
 
+    def release(self) -> None:
+        """Drop the device index (its tensors return to torch's allocator);
+        a later mapping pass would build it again."""
+        self._prep = None
+
     def map_store(self, store, kmer_mapper=None, force_device: bool = False):
         """Map every read of a ReadStore.  Returns (edge, start, votes)
         int64 numpy arrays of length store.n (edge == -1 unmapped).

@@ -1,19 +1,26 @@
 """Build the port's host state from the JAX package's, array for array.
 
 The assembler has no weights; what crosses between the two packages is
-state: counted (k+1)-mers, the extension index, the condensed graph and the
-edge k-mer index of the read mapper.
-Each function takes that state as a dict of numpy arrays (plus `k`), as
+state: counted (k+1)-mers, the extension index, the condensed graph, the
+edge k-mer index of the read mapper, and what the stages of an assembly hand
+on (the coverage model's `GenomicInfo`, a `SimplifyConfig`, the `KmerMapper`
+of glued k-mers, contigs).
+Each function takes that state as a dict of numpy arrays and scalars, as
 `dataclasses.asdict` gives it for `spades_tpu`'s `KmerCounts`,
-`ExtensionIndex`, `CondensedGraph` or `EdgeIndex`, and returns the port's object, so one
-JAX-built state can feed a port stage (the parity tests do this).
+`ExtensionIndex`, `CondensedGraph`, `EdgeIndex`, `GenomicInfo` or
+`SimplifyConfig`, and returns the port's object, so the state after one
+JAX-run stage can feed the port's next stage (the parity tests do this).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .alignment.kmer_mapper import KmerMapper
 from .alignment.mapper import EdgeIndex
+from .graph.coverage_model import GenomicInfo
 from .graph.graph import CondensedGraph
+from .graph.simplify import SimplifyConfig
+from .io.contigs import Contig
 from .ops.count import KmerCounts
 from .ops.extension import ExtensionIndex
 
@@ -66,3 +73,39 @@ def edge_index_from_arrays(d: dict) -> EdgeIndex:
         offset=np.ascontiguousarray(d["offset"], np.int64),
         strand=np.ascontiguousarray(d["strand"], np.uint8),
     )
+
+
+def genomic_info_from_dict(d: dict) -> GenomicInfo:
+    return GenomicInfo(
+        ec_bound=float(d["ec_bound"]),
+        trusted_bound=float(d["trusted_bound"]),
+        estimated_mean=float(d["estimated_mean"]),
+        genome_size=int(d["genome_size"]),
+        estimated_sd=float(d.get("estimated_sd", 0.0)),
+        converged=bool(d.get("converged", True)),
+    )
+
+
+def simplify_config_from_dict(d: dict) -> SimplifyConfig:
+    """Every field must be one the port's `SimplifyConfig` has: an unknown
+    name raises `TypeError`, so a field added on one side only is noticed."""
+    return SimplifyConfig(**d)
+
+
+def kmer_mapper_from_arrays(k: int, src: np.ndarray | None, dst: np.ndarray | None) -> KmerMapper:
+    """A `KmerMapper` from its materialized substitution table: sorted unique
+    source rows `(N, W)` uint32 and their destination rows (None or empty for
+    a mapper that recorded nothing)."""
+    m = KmerMapper(k=int(k))
+    if src is not None and len(src):
+        m._sorted_src = np.ascontiguousarray(src, np.uint32)
+        m._sorted_dst = np.ascontiguousarray(dst, np.uint32)
+        # `size` counts the recorded rows
+        m._src, m._dst = [m._sorted_src], [m._sorted_dst]
+    return m
+
+
+def contigs_from_records(records) -> list[Contig]:
+    """Contigs from (name, seq, coverage, edge_id) tuples."""
+    return [Contig(name=str(n), seq=str(s), coverage=float(c), edge_id=int(e))
+            for n, s, c, e in records]

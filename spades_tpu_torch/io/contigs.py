@@ -45,3 +45,41 @@ def extract_contigs(g: CondensedGraph, min_length: int = 0) -> list[Contig]:
 
 def write_contigs(path: str, contigs: list[Contig]) -> None:
     write_fasta(path, [(c.name, c.seq) for c in contigs])
+
+
+def break_scaffolds(records, threshold: int = 3):
+    """Split scaffold sequences at runs of >= threshold Ns.
+
+    Mirror of the outer pipeline's breaking-scaffolds step
+    (`src/projects/spades/pipeline/spades_pipeline/supplemetary/
+    breaking_scaffolds_script.py` + `support.py:428-453`,
+    THRESHOLD_FOR_BREAKING_SCAFFOLDS=3): each piece keeps the scaffold name
+    with a `_<n>` suffix.  `records` is (name, seq) pairs; returns
+    (modified, [(name, seq), ...])."""
+    out = []
+    modified = False
+    for name, seq in records:
+        base = name.split()[0]
+        rest = " ".join(name.split()[1:])
+        piece = 1
+        start = 0
+        i = 0
+        while i < len(seq):
+            j = seq.find("N", i)
+            if j < 0:
+                break
+            end = j
+            while end < len(seq) and seq[end] == "N":
+                end += 1
+            if end - j >= threshold:
+                modified = True
+                if start != j:
+                    nm = f"{base}_{piece}" + (f" {rest}" if rest else "")
+                    out.append((nm, seq[start:j]))
+                    piece += 1
+                start = end
+            i = end + 1
+        if start < len(seq):
+            nm = f"{base}_{piece}" + (f" {rest}" if rest else "")
+            out.append((nm, seq[start:]))
+    return modified, out

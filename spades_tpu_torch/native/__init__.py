@@ -1,11 +1,14 @@
 """ctypes bindings for the native (C++) host components.
 
 The device path is PyTorch/CUDA; the host runtime around it — the read
-loader (fastx.cpp), the sorted-run merger (merge.cpp) and the graph
-construction engine (graph.cpp) — is native C++, built on first use with
+loader (fastx.cpp), the sorted-run merger (merge.cpp), the graph
+construction engine (graph.cpp) and the simplification engines (simplify.cpp,
+bulge.cpp) — is native C++, built on first use with
 `make -C spades_tpu_torch/native` into `libstbr.so` beside the sources.
-Every caller must handle `None` from `lib()` and fall back to numpy; the
-fallbacks give identical results.
+Every caller must handle `None` from `lib()` and fall back to numpy.  The
+loader, merger and construction fallbacks give identical results; the numpy
+simplification loop is a different engine and need not give the same graph
+as `simplify_native`.
 """
 from __future__ import annotations
 
@@ -66,6 +69,34 @@ class _StbrReads(ctypes.Structure):
     ]
 
 
+class _StbrSimpOut(ctypes.Structure):
+    _fields_ = [
+        ("n_edges", ctypes.c_int64),
+        ("n_arcs_total", ctypes.c_int64),
+        ("chain_off", ctypes.POINTER(ctypes.c_int64)),
+        ("chain_arcs", ctypes.POINTER(ctypes.c_int64)),
+        ("e_start", ctypes.POINTER(ctypes.c_int64)),
+        ("e_end", ctypes.POINTER(ctypes.c_int64)),
+        ("e_conj", ctypes.POINTER(ctypes.c_int64)),
+        ("e_klen", ctypes.POINTER(ctypes.c_int64)),
+        ("e_cov", ctypes.POINTER(ctypes.c_double)),
+        ("pool_size", ctypes.c_int64),
+        ("seq_pool", ctypes.POINTER(ctypes.c_uint8)),
+        ("e_off", ctypes.POINTER(ctypes.c_int64)),
+        ("n_glues", ctypes.c_int64),
+        ("glue_arm_off", ctypes.POINTER(ctypes.c_int64)),
+        ("glue_arm_arcs", ctypes.POINTER(ctypes.c_int64)),
+        ("glue_keep_off", ctypes.POINTER(ctypes.c_int64)),
+        ("glue_keep_arcs", ctypes.POINTER(ctypes.c_int64)),
+        ("tips", ctypes.c_int64),
+        ("bulges", ctypes.c_int64),
+        ("ec", ctypes.c_int64),
+        ("isolated", ctypes.c_int64),
+        ("iterations", ctypes.c_int64),
+        ("error", ctypes.c_int32),
+    ]
+
+
 def lib():
     """The loaded native library, building it if needed; None if unavailable
     (then `build_log` holds what the build printed)."""
@@ -120,6 +151,30 @@ def lib():
         ]
         l.stbr_free_graph.restype = None
         l.stbr_free_graph.argtypes = [ctypes.POINTER(_StbrGraph)]
+        pf = ctypes.POINTER(ctypes.c_double)
+        l.stbr_lookup_rows.restype = ctypes.c_int64
+        l.stbr_lookup_rows.argtypes = [
+            ctypes.c_int64, ctypes.c_int32, pu32, ctypes.c_int64, pu32, p64,
+        ]
+        l.stbr_bulge_pass.restype = ctypes.c_int64
+        l.stbr_bulge_pass.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, p64, p64, p64, p64, pf, pf, pu8, p64,
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ]
+        l.stbr_simplify.restype = ctypes.POINTER(_StbrSimpOut)
+        l.stbr_simplify.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, p64, p64, p64, p64, pf, p64,
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_double,
+            ctypes.c_int32, ctypes.c_int32,
+            pu8, p64, ctypes.c_int32, ctypes.c_int32,
+        ]
+        l.stbr_free_simp.restype = None
+        l.stbr_free_simp.argtypes = [ctypes.POINTER(_StbrSimpOut)]
         _lib = l
     except (OSError, AttributeError) as e:
         log.debug("native load failed: %s", e)
@@ -286,6 +341,206 @@ def merge_runs_native(words: np.ndarray, counts: np.ndarray, run_off: np.ndarray
     if n < 0:
         return None
     return out_w[:n].copy(), out_c[:n].copy()
+
+
+def lookup_rows_native(haystack: np.ndarray, needles: np.ndarray):
+    """Hash-table row lookup (native): position of each needle in haystack,
+    -1 when absent.  Fast path of ops/count.py searchsorted_rows."""
+    l = lib()
+    if l is None:
+        return None
+    haystack = np.ascontiguousarray(haystack, np.uint32)
+    needles = np.ascontiguousarray(needles, np.uint32)
+    U, W = haystack.shape
+    N = needles.shape[0]
+    out = np.empty(N, np.int64)
+    pu32 = ctypes.POINTER(ctypes.c_uint32)
+    rc = l.stbr_lookup_rows(
+        np.int64(U), np.int32(W),
+        haystack.ctypes.data_as(pu32),
+        np.int64(N), needles.ctypes.data_as(pu32),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    if rc != 0:
+        return None
+    return out
+
+
+def bulge_pass_native(
+    e_start: np.ndarray,
+    e_end: np.ndarray,
+    e_conj: np.ndarray,
+    lens: np.ndarray,
+    avg_cov: np.ndarray,
+    e_cov: np.ndarray,
+    alive: np.ndarray,
+    cand: np.ndarray,
+    n_vertices: int,
+    max_len: int,
+    max_delta: float,
+    max_rel_delta: float,
+    max_rel_cov: float,
+):
+    """Sequential bounded-Dijkstra bulge removal (native).
+
+    Mutates ``e_cov`` and ``alive`` in place; returns the number of oriented
+    edges removed, or None when the native library is unavailable.  Mirror of
+    BulgeRemover + bounded Dijkstra
+    (`src/common/modules/simplification/bulge_remover.hpp:346`).
+    """
+    l = lib()
+    if l is None:
+        return None
+    e_start = np.ascontiguousarray(e_start, np.int64)
+    e_end = np.ascontiguousarray(e_end, np.int64)
+    e_conj = np.ascontiguousarray(e_conj, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    avg_cov = np.ascontiguousarray(avg_cov, np.float64)
+    cand = np.ascontiguousarray(cand, np.int64)
+    # both are mutated in place through their pointers: no silent copy
+    if e_cov.dtype != np.float64 or not e_cov.flags.c_contiguous:
+        raise ValueError("e_cov must be a C-contiguous float64 array")
+    if alive.dtype != np.uint8 or not alive.flags.c_contiguous:
+        raise ValueError("alive must be a C-contiguous uint8 array")
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    pf = ctypes.POINTER(ctypes.c_double)
+    return int(
+        l.stbr_bulge_pass(
+            np.int64(len(e_start)),
+            np.int64(n_vertices),
+            e_start.ctypes.data_as(p64),
+            e_end.ctypes.data_as(p64),
+            e_conj.ctypes.data_as(p64),
+            lens.ctypes.data_as(p64),
+            avg_cov.ctypes.data_as(pf),
+            e_cov.ctypes.data_as(pf),
+            alive.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            cand.ctypes.data_as(p64),
+            np.int64(len(cand)),
+            np.int64(max_len),
+            np.float64(max_delta),
+            np.float64(max_rel_delta),
+            np.float64(max_rel_cov),
+        )
+    )
+
+
+def simplify_native(
+    a_start: np.ndarray,
+    a_end: np.ndarray,
+    a_conj: np.ndarray,
+    a_klen: np.ndarray,
+    a_cov: np.ndarray,
+    v_conj: np.ndarray,
+    *,
+    cycle_iter_count: int,
+    tip_len_1: int,
+    tip_len_2: int,
+    tip_cb1: float,
+    auto_cb: float,
+    rctc: float,
+    br_enabled: bool,
+    br_max_len: int,
+    max_delta: float,
+    max_rel_delta: float,
+    max_rel_cov: float,
+    ec_len: int,
+    rel_cov_enabled: bool,
+    rel_cov_ratio: float,
+    record_glue: bool,
+    retrigger: bool = True,
+    arc_seq_pool: np.ndarray | None = None,
+    arc_seq_off: np.ndarray | None = None,
+    k: int = 0,
+):
+    """Full simplification schedule on the chain-merging engine (native).
+
+    Inputs describe the alive oriented edges ("arcs"); returns a dict with
+    the final chain decomposition (chain_off/chain_arcs over arc indices),
+    per-edge columns, bulge glue records, and pass statistics — or None when
+    the native library is unavailable.  Mirror of SPAdes' schedule
+    (`src/common/stages/simplification.cpp:405-429`) run as
+    native code like `modules/simplification/parallel_simplification_algorithms.hpp`.
+    """
+    l = lib()
+    if l is None:
+        return None
+    a_start = np.ascontiguousarray(a_start, np.int64)
+    a_end = np.ascontiguousarray(a_end, np.int64)
+    a_conj = np.ascontiguousarray(a_conj, np.int64)
+    a_klen = np.ascontiguousarray(a_klen, np.int64)
+    a_cov = np.ascontiguousarray(a_cov, np.float64)
+    v_conj = np.ascontiguousarray(v_conj, np.int64)
+    A = len(a_start)
+    V = len(v_conj)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    pf = ctypes.POINTER(ctypes.c_double)
+    pu8 = ctypes.POINTER(ctypes.c_uint8)
+    want_seq = arc_seq_pool is not None and arc_seq_off is not None
+    if want_seq:
+        arc_seq_pool = np.ascontiguousarray(arc_seq_pool, np.uint8)
+        arc_seq_off = np.ascontiguousarray(arc_seq_off, np.int64)
+    op = l.stbr_simplify(
+        np.int64(A), np.int64(V),
+        a_start.ctypes.data_as(p64), a_end.ctypes.data_as(p64),
+        a_conj.ctypes.data_as(p64), a_klen.ctypes.data_as(p64),
+        a_cov.ctypes.data_as(pf), v_conj.ctypes.data_as(p64),
+        np.int32(cycle_iter_count), np.int64(tip_len_1), np.int64(tip_len_2),
+        np.float64(tip_cb1), np.float64(auto_cb), np.float64(rctc),
+        np.int32(br_enabled), np.int64(br_max_len), np.float64(max_delta),
+        np.float64(max_rel_delta), np.float64(max_rel_cov),
+        np.int64(ec_len), np.int32(rel_cov_enabled), np.float64(rel_cov_ratio),
+        np.int32(record_glue), np.int32(retrigger),
+        arc_seq_pool.ctypes.data_as(pu8) if want_seq else ctypes.cast(None, pu8),
+        arc_seq_off.ctypes.data_as(p64) if want_seq else ctypes.cast(None, p64),
+        np.int32(k), np.int32(want_seq),
+    )
+    if not op:
+        return None
+    try:
+        o = op.contents
+        if o.error != 0:
+            return None
+        E = int(o.n_edges)
+        T = int(o.n_arcs_total)
+        G = int(o.n_glues)
+        z = np.zeros(0, np.int64)
+        return {
+            "chain_off": _arr(o.chain_off, (E + 1,), np.int64),
+            "chain_arcs": _arr(o.chain_arcs, (T,), np.int64) if T else z.copy(),
+            "e_start": _arr(o.e_start, (E,), np.int64) if E else z.copy(),
+            "e_end": _arr(o.e_end, (E,), np.int64) if E else z.copy(),
+            "e_conj": _arr(o.e_conj, (E,), np.int64) if E else z.copy(),
+            "e_klen": _arr(o.e_klen, (E,), np.int64) if E else z.copy(),
+            "e_cov": _arr(o.e_cov, (E,), np.float64) if E else np.zeros(0),
+            "e_off": (
+                _arr(o.e_off, (E,), np.int64)
+                if want_seq and E
+                else np.zeros(0, np.int64)
+            ) if want_seq else None,
+            "seq_pool": (
+                _arr(o.seq_pool, (int(o.pool_size),), np.uint8)
+                if want_seq and o.pool_size
+                else np.zeros(0, np.uint8)
+            ) if want_seq else None,
+            "glue_arm_off": _arr(o.glue_arm_off, (G + 1,), np.int64),
+            "glue_arm_arcs": (
+                _arr(o.glue_arm_arcs, (int(o.glue_arm_off[G]),), np.int64)
+                if G and o.glue_arm_off[G] else z.copy()
+            ),
+            "glue_keep_off": _arr(o.glue_keep_off, (G + 1,), np.int64),
+            "glue_keep_arcs": (
+                _arr(o.glue_keep_arcs, (int(o.glue_keep_off[G]),), np.int64)
+                if G and o.glue_keep_off[G] else z.copy()
+            ),
+            "tips": int(o.tips),
+            "bulges": int(o.bulges),
+            "ec": int(o.ec),
+            "isolated": int(o.isolated),
+            "iterations": int(o.iterations),
+        }
+    finally:
+        l.stbr_free_simp(op)
 
 
 def read_fastx_native(path: str):

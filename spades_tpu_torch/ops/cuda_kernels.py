@@ -138,7 +138,12 @@ def canonical_window_keys(pc: torch.Tensor, pn: torch.Tensor,
             msg = _lib.spades_cuda_error_string(rc).decode()
             raise RuntimeError(f"canonical_windows kernel launch failed: {msg} ({rc})")
         canonical_window_keys.launches += 1
+        if canonical_window_keys.launch_shapes is not None:
+            canonical_window_keys.launch_shapes[(R, L, k, strand)] += 1
     return (keys, valid, was_rc) if strand else (keys, valid)
 
 
 canonical_window_keys.launches = 0
+# set to a `collections.Counter` to have every launch counted by its
+# (R, L, k, strand) as well: how a run learns which shapes a path gave the kernel
+canonical_window_keys.launch_shapes = None

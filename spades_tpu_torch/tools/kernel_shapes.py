@@ -17,15 +17,26 @@ H100_INT32_OPS_PER_S = 67e12
 
 # name, rows, padded row length, k, strand plane, length of every row (None:
 # ragged, k..L).  The index tiers are the row plans of `build_index_device`
-# (2^25 bases a step), the rest are slices of 150-base reads.
+# (2^25 bases a step), the rest are slices of 150-base reads.  A 21,33,55
+# ladder counts (k+1)-mers at 22, 34 and 56 and maps, prefilters and indexes
+# at each k; `gbuilder` and the mapping pass on its graph run at k=55.
+def _ladder_shapes(k: int):
+    return (
+        (f"index tier 8192 k={k}, strand", 4096, 8192, k, True, 8192),
+        (f"index tier 2048 k={k}, strand", 16384, 2048, k, True, 2048),
+        (f"index tier 256 k={k}, strand", 131072, 256, k, True, None),
+        (f"prefilter sub-slice k={k}", 65536, 152, k, False, 150),
+        (f"mapper sub-slice k={k}, strand", 131072, 152, k, True, 150),
+    )
+
+
 MAIN_SHAPES = (
-    ("index tier 8192 k=55, strand", 4096, 8192, 55, True, 8192),
-    ("index tier 2048 k=55, strand", 16384, 2048, 55, True, 2048),
-    ("index tier 256 k=55, strand", 131072, 256, 55, True, None),
-    ("prefilter sub-slice k=55", 65536, 152, 55, False, 150),
-    ("mapper sub-slice k=55, strand", 131072, 152, 55, True, 150),
+    *_ladder_shapes(21),
+    *_ladder_shapes(33),
+    *_ladder_shapes(55),
     ("ReadBatch k=56", 65536, 256, 56, False, 150),
     ("ReadStore chunk k=22", 262144, 152, 22, False, 150),
+    ("ReadStore chunk k=34", 262144, 152, 34, False, 150),
     ("ReadStore chunk k=56", 262144, 152, 56, False, 150),
 )
 

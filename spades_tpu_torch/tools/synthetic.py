@@ -9,11 +9,9 @@ from __future__ import annotations
 import numpy as np
 
 
-def make_e2e_dataset(G: int, cov: int, rl: int, err: float, seed: int = 42,
-                     insert_mean: int = 400, insert_sd: int = 30):
-    """G-nt random genome with planted dispersed repeats (3 x 500 bp x 30
-    copies + 1 x 2 kb x 10 copies), FR paired reads at the given coverage
-    with substitution errors.  Returns (genome, r1, r2) as uint8 codes."""
+def _sample_pairs(G: int, cov: int, rl: int, err: float, seed: int,
+                  insert_mean: int, insert_sd: int):
+    """Genome, FR pairs, and each pair's insert start and size."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, G).astype(np.uint8)
     elems = [rng.integers(0, 4, 500).astype(np.uint8) for _ in range(3)]
@@ -33,7 +31,41 @@ def make_e2e_dataset(G: int, cov: int, rl: int, err: float, seed: int = 42,
     for r in (r1, r2):
         em = rng.random(r.shape) < err
         r[em] = (r[em] + rng.integers(1, 4, int(em.sum()))) & 3
-    return genome, r1, r2
+    return genome, r1, r2, starts, isize
+
+
+def make_e2e_dataset(G: int, cov: int, rl: int, err: float, seed: int = 42,
+                     insert_mean: int = 400, insert_sd: int = 30):
+    """G-nt random genome with planted dispersed repeats (3 x 500 bp x 30
+    copies + 1 x 2 kb x 10 copies), FR paired reads at the given coverage
+    with substitution errors.  Returns (genome, r1, r2) as uint8 codes."""
+    return _sample_pairs(G, cov, rl, err, seed, insert_mean, insert_sd)[:3]
+
+
+def make_gapped_dataset(G: int, cov: int, rl: int, err: float, seed: int, n_gaps: int,
+                        min_overlap: int = 10, max_overlap: int = 45,
+                        insert_mean: int = 400, insert_sd: int = 30):
+    """The dataset of `make_e2e_dataset` with coverage gaps: at `n_gaps`
+    evenly spread positions every pair with a read that reaches across is
+    dropped, so the reads left of a position and those right of it share only
+    `min_overlap`..`max_overlap` bases.  Below k that breaks the graph into
+    two tips which pairs still span: what the gap closer is for.  Returns
+    (genome, r1, r2, gaps) with gaps as (position, overlap) rows."""
+    genome, r1, r2, starts, isize = _sample_pairs(G, cov, rl, err, seed,
+                                                  insert_mean, insert_sd)
+    rng = np.random.default_rng(seed + 1)
+    pos = (np.arange(1, n_gaps + 1) * (G // (n_gaps + 1))).astype(np.int64)
+    overlap = rng.integers(min_overlap, max_overlap + 1, n_gaps)
+
+    def crosses(a):
+        """Read [a, a+rl) lies neither left nor right of some gap."""
+        out = np.zeros(len(a), bool)
+        for p, ov in zip(pos, overlap):
+            out |= (a + rl > p + ov // 2) & (a < p - (ov - ov // 2))
+        return out
+
+    keep = ~crosses(starts) & ~crosses(starts + isize - rl)
+    return genome, r1[keep], r2[keep], np.stack([pos, overlap], axis=1)
 
 
 def write_fastq(path: str, reads: np.ndarray, mate: int) -> None:

@@ -170,3 +170,44 @@ def test_mapping_cuda_matches_cpu(cuda, monkeypatch):
         tips = build_edge_index(g).kmers[::7]
         assert np.array_equal(SM.hit_filter_store(store, tips, k, device=cuda),
                               SM.hit_filter_store(store, tips, k, device="cpu"))
+
+
+@pytest.mark.parametrize("k_list", [[21, 33, 55], [55]])
+def test_run_assembly_cuda_matches_cpu(cuda, monkeypatch, tmp_path, k_list):
+    """Reads to contigs without repeat resolution, with gaps to close: the
+    card's graph and files equal the CPU path's, and the kernel was launched
+    by counting, the prefilter and the mapper."""
+    import collections
+    import filecmp
+
+    from spades_tpu_torch.pipeline.run import run_assembly
+    from spades_tpu_torch.pipeline.spades_stages import GAP_CLOSER_STATS
+    from spades_tpu_torch.tools import synthetic
+
+    for name, value in (("SPADES_HOST_COUNT_WINDOWS", "1"), ("SPADES_DEVICE_MAP_READS", "1"),
+                        ("SPADES_DEVICE_INDEX_POOL", "1"), ("SPADES_MAP_SUBCHUNK", "4096")):
+        monkeypatch.setenv(name, value)
+    _genome, r1, r2, _gaps = synthetic.make_gapped_dataset(100_000, 40, 150, 0.003, 2, 10)
+    lefts, rights = list(r1), list(r2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        GAP_CLOSER_STATS.clear()
+        CK.canonical_window_keys.launches = 0
+        CK.canonical_window_keys.launch_shapes = collections.Counter()
+        res = run_assembly(lefts + rights, k_list, str(tmp_path / dev),
+                           paired_libs=[(lefts, rights)], disable_rr=True, read_length=150,
+                           device=dev, checkpoints="none")
+        shapes = CK.canonical_window_keys.launch_shapes
+        CK.canonical_window_keys.launch_shapes = None
+        out[dev] = (res, [(k, s, st["candidates"], st["closed"]) for k, s, st in GAP_CLOSER_STATS],
+                    CK.canonical_window_keys.launches, shapes)
+    assert out["cpu"][2] == 0 and out["cuda"][2] > 0
+    kinds = {(k % 2 == 0, strand) for (_R, _L, k, strand) in out["cuda"][3]}
+    assert kinds >= {(True, False), (False, False), (False, True)}
+    assert out["cuda"][1] == out["cpu"][1]
+    assert sum(row[3] for row in out["cuda"][1]) > 0
+    for f in GRAPH_FIELDS:
+        assert np.array_equal(getattr(out["cuda"][0].graph, f), getattr(out["cpu"][0].graph, f)), f
+    for name in ("contigs.fasta", "scaffolds.fasta", "assembly_graph_with_scaffolds.gfa",
+                 "assembly_graph.fastg", "contigs.paths"):
+        assert filecmp.cmp(tmp_path / "cuda" / name, tmp_path / "cpu" / name, shallow=False)
