@@ -16,15 +16,22 @@
    read of one `ReadStore` (device-built edge index, search, vote) and the tip
    prefilter `hit_filter_store`, checked against the sequence pool, the host
    index build and the port's CPU path, with the time of each part.
-5. Assembly of the same isolate: `run_assembly(k_list=[21, 33, 55],
-   disable_rr=True)`, reads to contigs with everything but repeat
-   resolution.  Graph invariants after every stage, the native library, the
-   device index of the simplified k=55 graph (its upper row tiers) against
-   the host build, contigs against the genome, the output files.
-6. Gap closing: a 300 kb genome whose pairs are thinned at planted positions
-   so that k=55 tips overlap by 10 to 45 bases, assembled at k=55 on the card
-   and on the CPU; gaps must close and the two results must be equal.
-7. Every shape phases 3 to 6 gave the kernel that phase 2 did not hold yet,
+5. Assembly of the same isolate: `run_assembly(k_list=[21, 33, 55])`,
+   reads to repeat-resolved contigs and scaffolds (PairInfoCount maps every
+   read onto the simplified k=55 graph, DistanceEstimation, RepeatResolution).
+   Graph invariants after every stage, the native library, the insert-size
+   estimate and the mapped share of the pairs, the device index of the
+   simplified k=55 graph (its upper row tiers) against the host build,
+   contigs and broken scaffolds against the genome, the output files.
+6. Gap closing with repeat resolution: a 300 kb genome whose pairs are
+   thinned at planted positions so that k=55 tips overlap by 10 to 45 bases,
+   assembled at k=55 on the card and on the CPU; gaps must close and the two
+   results (raw and clustered pair indices, paths, contigs, scaffolds) must
+   be equal.
+7. The CLI: the gap dataset as FASTQ through `python -m
+   spades_tpu_torch.pipeline.main --only-assembler -k 55` on the card, in a
+   subprocess; its contigs and scaffolds must equal phase 6's card run.
+8. Every shape phases 3 to 7 gave the kernel that phase 2 did not hold yet,
    against the plain version and timed.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
@@ -97,6 +104,12 @@ def phase_toolchain(dev) -> dict:
     except ImportError as e:
         rec["triton"] = f"not importable: {e}"
     rec["ninja"] = shutil.which("ninja")
+    try:        # the port writes run_spades.yaml without it; --dataset needs it
+        import yaml
+
+        rec["yaml"] = yaml.__version__
+    except ImportError as e:
+        rec["yaml"] = f"not importable: {e}"
     t0 = time.perf_counter()
     rec["native_loaded"] = native.lib() is not None
     rec["native_build_s"] = time.perf_counter() - t0
@@ -457,11 +470,24 @@ def phase_mapping(dev, state, subset_pairs: int, seed: int, n_tips: int = 10_000
 
 
 # ---------------------------------------------------------------------------
-# 5. assembly of the isolate: reads to contigs without repeat resolution
+# 5. assembly of the isolate: reads to repeat-resolved contigs and scaffolds
 # ---------------------------------------------------------------------------
 
 STAGE_IDS = ("construction", "ec_threshold_finder", "raw_simplification",
              "gap_closer_early", "simplification", "gap_closer_late", "contig_output")
+RR_STAGE_IDS = ("pair_info_count", "distance_estimation", "repeat_resolving")
+
+
+def stage_ids(k_list) -> list:
+    """(k, stage id) of every stage `run_assembly` runs: repeat resolution
+    comes before ContigOutput, at the last K only."""
+    out = []
+    for k in k_list:
+        ids = list(STAGE_IDS)
+        if k == k_list[-1]:
+            ids[-1:-1] = RR_STAGE_IDS
+        out += [(k, s) for s in ids]
+    return out
 OUTPUT_FILES = ("contigs.fasta", "scaffolds.fasta", "assembly_graph_with_scaffolds.gfa",
                 "assembly_graph.fastg", "contigs.paths", "scaffolds.paths")
 
@@ -472,7 +498,8 @@ def after_every_stage(hook):
     from spades_tpu_torch.pipeline import spades_stages as S
 
     classes = (S.Construction, S.GenomicInfoFiller, S.RawSimplification, S.GapClosing,
-               S.Simplification, S.ContigOutput)
+               S.Simplification, S.PairInfoCount, S.DistanceEstimation, S.RepeatResolution,
+               S.ContigOutput)
     saved = [(cls, cls.run) for cls in classes]
 
     def hooked(run):
@@ -548,6 +575,30 @@ def substitutions_against(seq: str, strands, err: float, anchor: int = 32,
     return best if best is not None and best <= max(2, err * len(seq)) else None
 
 
+def repeat_joints(seq: str, strands, flank: int = 60):
+    """Where `seq` joins pieces that each lie exactly in one of `strands`
+    (the genome and its reverse complement), every joint right after `flank`
+    bases that occur at least twice there: inside a copy of a repeat, where
+    greedy path extension may cross to another copy's flank when the repeat
+    is longer than the insert.  Returns the joints' positions, or None when a
+    piece lies nowhere or a joint is not at a repeat."""
+    cuts, a = [], 0
+    while True:
+        lo, hi = a, len(seq)           # longest seq[a:m] that lies in a strand
+        while lo < hi:
+            m = (lo + hi + 1) // 2
+            if any(seq[a:m] in g for g in strands):
+                lo = m
+            else:
+                hi = m - 1
+        if lo == len(seq):
+            return cuts
+        if lo - a < flank or sum(g.count(seq[lo - flank : lo]) for g in strands) < 2:
+            return None
+        cuts.append(lo)
+        a = lo
+
+
 def check_index_against_host(name, prep, host_index, k) -> None:
     """A device-built index (`MappingEngine._device_index`) equals the host's
     `build_edge_index` of the same graph, row for row."""
@@ -566,13 +617,14 @@ def check_index_against_host(name, prep, host_index, k) -> None:
 
 
 def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
-                   rl: int = 150, n_sample: int = 200, total_tolerance: float = 0.02):
+                   rl: int = 150, n_sample: int = 200, total_tolerance: float = 0.02,
+                   insert_mean: int = 400):
     import numpy as np
     import torch
 
     from spades_tpu_torch import native
     from spades_tpu_torch.alignment.mapper import MappingEngine, build_edge_index
-    from spades_tpu_torch.core.reads import ReadStore
+    from spades_tpu_torch.io.contigs import extract_contigs
     from spades_tpu_torch.io.gfa import read_gfa
     from spades_tpu_torch.ops import cuda_kernels as CK
     from spades_tpu_torch.pipeline import spades_stages as S
@@ -615,6 +667,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     ST.STAGE_TIMES.clear()
     S.CONSTRUCT_PHASES.clear()
     S.GAP_CLOSER_STATS.clear()
+    S.RR_STATS.clear()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     CK.canonical_window_keys.launches = 0
@@ -623,7 +676,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     t0 = time.perf_counter()
     with after_every_stage(hook):
         res = run_assembly(lefts + rights, list(k_list), out, paired_libs=[(lefts, rights)],
-                           disable_rr=True, read_length=rl, device=dev, checkpoints="none")
+                           read_length=rl, device=dev, checkpoints="none")
     sync(dev)
     wall_s = time.perf_counter() - t0
     launches = CK.canonical_window_keys.launches
@@ -633,7 +686,8 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
                 else None)
 
     # -- the index of the simplified graph: built on the device, it must use the
-    # upper row tiers and equal the host build; all left mates map onto it ----
+    # upper row tiers and equal the host build (PairInfoCount mapped every read
+    # onto it in the run) ------------------------------------------------------
     engine = MappingEngine(res.graph, device=dev)
     t0 = time.perf_counter()
     engine._device_index()
@@ -644,47 +698,72 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     check_index_against_host(f"k={k_last} simplified graph", engine._device_index(),
                              build_edge_index(res.graph, k_last), k_last)
     simplified["host_index_check_s"] = time.perf_counter() - t0
-    left = ReadStore.build(lefts)
-    t0 = time.perf_counter()
-    edge, _start, _votes = engine.map_store(left, force_device=True)
-    sync(dev)
-    simplified["map_left_mates_s"] = time.perf_counter() - t0
-    simplified["left_mates"] = int(left.n)
-    simplified["left_mates_mapped"] = int((edge >= 0).sum())
     engine.release()
-    del left, edge
 
     # -- checks ---------------------------------------------------------------
     check(launches > 0 or dev.type == "cpu",
           "assembly: the canonical-windows kernel was not launched")
-    check([(k, s) for k, s, _ in ST.STAGE_TIMES] == [(k, s) for k in k_list for s in STAGE_IDS],
+    check([(k, s) for k, s, _ in ST.STAGE_TIMES] == stage_ids(k_list),
           f"assembly: the stages that ran are {[(k, s) for k, s, _ in ST.STAGE_TIMES]}")
-    check(len(per_stage) == len(k_list) * len(STAGE_IDS), "assembly: a stage was not checked")
+    check(len(per_stage) == len(stage_ids(k_list)), "assembly: a stage was not checked")
+    rr = {s: st for _k, s, st in S.RR_STATS}
+    check(list(rr) == list(RR_STAGE_IDS) and len(S.RR_STATS) == 3,
+          f"assembly: repeat-resolution records {[s for _, s, _ in S.RR_STATS]}")
+    pic = rr["pair_info_count"]
+    check(abs(pic["is_median"] - insert_mean) <= 30,
+          f"insert-size median {pic['is_median']}, not within 30 of {insert_mean}")
+    check(pic["mapped_both"] >= 0.97 * pic["pairs"],
+          f"only {pic['mapped_both']} of {pic['pairs']} pairs map with both mates")
+    check(rr["distance_estimation"]["improved_entries"] > 0, "the paired index is empty")
+    check(rr["repeat_resolving"]["paths"] > 0 and len(res.scaffolds) > 0,
+          "repeat resolution made no path")
     tier_rows = simplified.get("index", {}).get("tier_rows", {})
     check(simplified.get("index", {}).get("index_rows", 0) > 0,
           "the index of the simplified graph was not built on the device")
     for tier in (2048, 8192):
         check(tier_rows.get(tier, 0) > 0,
               f"the {tier}-base index tier got no row on the simplified k={k_last} graph")
-    check(simplified["left_mates_mapped"] >= 0.97 * simplified["left_mates"],
-          f"only {simplified['left_mates_mapped']} of {simplified['left_mates']} left mates "
-          "map onto the simplified graph")
     stats = assembly_stats(res.contigs)
+    before_rr = assembly_stats(extract_contigs(res.graph))   # the graph's edges as contigs
     check(abs(stats["total"] - len(genome)) <= total_tolerance * len(genome),
           f"contigs total {stats['total']} nt, not within {total_tolerance:.0%} of the "
           f"genome's {len(genome)}")
     acgt = np.frombuffer(b"ACGT", np.uint8)
     fwd = acgt[genome].tobytes().decode()
     rev = acgt[(3 - genome)[::-1]].tobytes().decode()
-    long_contigs = [c for c in res.contigs if len(c.seq) >= 1000]
-    check(len(long_contigs) > 0, "assembly: no contig of 1 kb or more")
     rng = np.random.default_rng(seed)
-    picks = rng.choice(len(long_contigs), min(n_sample, len(long_contigs)), replace=False)
-    subs = {long_contigs[i].name: substitutions_against(long_contigs[i].seq, (fwd, rev), 0.003)
-            for i in picks}
-    wrong = [name for name, d in subs.items() if d is None]
-    check(not wrong, f"{len(wrong)} of {len(picks)} sampled contigs of 1 kb or more lie "
-                     f"nowhere in the genome or its reverse complement: {wrong[:5]}")
+
+    def sample_in_genome(what, records):
+        """Up to n_sample records of 1 kb or more, each laid onto the genome
+        with at most a few substitutions, or else cut into exact pieces of the
+        genome that join inside repeats (`repeat_joints`)."""
+        long_ = [(name, seq) for name, seq in records if len(seq) >= 1000]
+        picks = rng.choice(len(long_), min(n_sample, len(long_)), replace=False)
+        subs = {long_[i][0]: substitutions_against(long_[i][1], (fwd, rev), 0.003)
+                for i in picks}
+        joined = {long_[i][0]: repeat_joints(long_[i][1], (fwd, rev)) for i in picks
+                  if subs[long_[i][0]] is None}
+        wrong = [name for name, cuts in joined.items() if cuts is None]
+        check(not wrong, f"{len(wrong)} of {len(picks)} sampled {what} of 1 kb or more lie "
+                         f"nowhere in the genome or its reverse complement, not even as "
+                         f"pieces joined at repeats: {wrong[:5]}")
+        placed = {n: d for n, d in subs.items() if d is not None}
+        return len(long_), {"checked": len(subs), "exact": sum(d == 0 for d in placed.values()),
+                            "most_substitutions": max(placed.values(), default=None),
+                            "joined_at_repeats": len(joined),
+                            "joints": sum(len(c) for c in joined.values()),
+                            "joined_lengths": sorted(len(seq) for n, seq in long_ if n in joined)}
+
+    n_long, contig_check = sample_in_genome("contigs", [(c.name, c.seq) for c in res.contigs])
+    check(n_long > 0, "assembly: no contig of 1 kb or more")
+    broken_path = os.path.join(out, "misc", "broken_scaffolds.fasta")
+    broken = {"file": os.path.exists(broken_path), "pieces_1kb": 0}
+    if broken["file"]:
+        from spades_tpu_torch.io.fastx import read_fastx
+
+        broken["pieces_1kb"], broken["check"] = sample_in_genome(
+            "broken scaffolds", [(r.name, r.seq) for r in read_fastx(broken_path)])
+    n_gapped = sum(1 for sc in res.scaffolds if "N" in sc.seq)
     for sub in ("", f"K{k_last}"):
         for name in OUTPUT_FILES:
             path = os.path.join(out, sub, name)
@@ -692,7 +771,8 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     parsed = read_gfa(os.path.join(out, "assembly_graph_with_scaffolds.gfa"))
     check(len(parsed.segments) == len(res.graph.canonical_edge_ids()),
           "read_gfa: the segments read back are not the graph's edge pairs")
-    check(len(parsed.paths) == len(res.contigs), "read_gfa: the paths read back are not the contigs")
+    check(len(parsed.paths) == len(res.scaffolds),
+          "read_gfa: the paths read back are not the scaffolds")
 
     rec = {
         "phase": "assembly",
@@ -701,23 +781,33 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
         "stage_times": {f"k={k} {s}": t for k, s, t in ST.STAGE_TIMES},
         "construction": {f"k={k}": tm for k, tm in S.CONSTRUCT_PHASES},
         "gap_closer": {f"k={k} {s}": st for k, s, st in S.GAP_CLOSER_STATS},
+        "repeat_resolution": rr,
         "per_stage": per_stage,
         "simplified_graph": simplified,
         "launches": launches,
         "launches_by_caller": launches_by_caller(shapes),
         "peak_device_gib": peak_gib,
-        "contig_stats": stats, "contigs_1kb": len(long_contigs),
-        "contigs_checked": int(len(picks)),
-        "contigs_exact": sum(1 for d in subs.values() if d == 0),
-        "most_substitutions": max(subs.values()),
+        "contig_stats": stats, "contig_stats_before_rr": before_rr,
+        "scaffold_stats": assembly_stats(res.scaffolds), "scaffolds_with_n": n_gapped,
+        "broken_scaffolds": broken, "contigs_1kb": n_long, "contigs_check": contig_check,
         "gfa_segments": len(parsed.segments),
     }
     return rec, launches, shapes
 
 
 # ---------------------------------------------------------------------------
-# 6. gap closing, card against CPU
+# 6. gap closing and repeat resolution, card against CPU
 # ---------------------------------------------------------------------------
+
+RR_SAVES = (("pair_info_count", "raw_pairs_0.npz"), ("distance_estimation", "paired_index.npz"),
+            ("distance_estimation", "scaffold_index.npz"))
+RR_FILES = ("contigs.fasta", "scaffolds.fasta", "contigs.paths", "scaffolds.paths")
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
 
 def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage: int = 40,
               n_gaps: int = 30, k: int = 55, rl: int = 150):
@@ -740,6 +830,7 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
         if where.type in results:        # a CPU rehearsal: one run is both
             continue
         S.GAP_CLOSER_STATS.clear()
+        S.RR_STATS.clear()
         out = os.path.join(workdir, f"gap_{where.type}")
         if where == dev:
             # -- the gap path: launch counts from 0, read right after ---------
@@ -747,15 +838,17 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
             CK.canonical_window_keys.launch_shapes = shapes
         t0 = time.perf_counter()
         res = run_assembly(lefts + rights, [k], out, paired_libs=[(lefts, rights)],
-                           disable_rr=True, read_length=rl, device=where, checkpoints="none")
+                           read_length=rl, device=where, checkpoints="all")
         sync(where)
         wall[f"{where.type}_s"] = time.perf_counter() - t0
         if where == dev:
             launches = CK.canonical_window_keys.launches
             CK.canonical_window_keys.launch_shapes = None
-        with open(os.path.join(out, "contigs.fasta"), "rb") as fh:
-            fasta = fh.read()
-        results[where.type] = (res, fasta, [(s, dict(st)) for _, s, st in S.GAP_CLOSER_STATS])
+        saves = {f"{st}/{f}": np.load(os.path.join(out, f"K{k}", "saves", st, f))
+                 for st, f in RR_SAVES}
+        files = {f: read_bytes(os.path.join(out, f)) for f in RR_FILES}
+        results[where.type] = (res, files, [(s, dict(st)) for _, s, st in S.GAP_CLOSER_STATS],
+                               saves, {s: dict(st) for _, s, st in S.RR_STATS}, out)
 
     got = results[dev.type]
     ref = results["cpu"]
@@ -769,7 +862,14 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
     for f in GRAPH_FIELDS:
         check(np.array_equal(getattr(got[0].graph, f), getattr(ref[0].graph, f)),
               f"gap phase: device and CPU graphs differ in {f}")
-    check(got[1] == ref[1], "gap phase: device and CPU contigs.fasta differ")
+    for name, z in got[3].items():
+        for col in ("e1", "e2", "dist", "weight"):
+            check(z[col].dtype == ref[3][name][col].dtype
+                  and np.array_equal(z[col], ref[3][name][col]),
+                  f"gap phase: device and CPU {name} differ in {col}")
+    for name, data in got[1].items():
+        check(data == ref[1][name], f"gap phase: device and CPU {name} differ")
+    check(len(got[0].scaffolds) > 0, "gap phase: repeat resolution made no scaffold")
     got[0].graph.check_invariants()
 
     rec = {
@@ -781,14 +881,63 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
                     "seed": seed + 1},
         "k": k, "wall_s": wall, "closed": closed,
         "gap_closer": {s: st for s, st in got[2]},
+        "repeat_resolution": got[4],
+        "index_entries": {name: int(z["e1"].shape[0]) for name, z in got[3].items()},
         "contig_stats": assembly_stats(got[0].contigs),
+        "scaffold_stats": assembly_stats(got[0].scaffolds),
         "launches": launches, "launches_by_caller": launches_by_caller(shapes),
     }
-    return rec, launches, shapes
+    return rec, launches, shapes, {"r1": r1, "r2": r2, "k": k, "out": got[5]}
 
 
 # ---------------------------------------------------------------------------
-# 7. the shapes the paths gave the kernel that phase 2 did not hold
+# 7. the CLI in a subprocess, against the library call
+# ---------------------------------------------------------------------------
+
+def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
+    """`python -m spades_tpu_torch.pipeline.main` on the gap dataset written
+    as FASTQ: its contigs and scaffolds must equal the in-process run's.  The
+    CLI logs how often it launched the kernel (a process of its own counts
+    from 0)."""
+    import re
+
+    from spades_tpu_torch.tools import synthetic
+
+    paths = [os.path.join(workdir, "cli_1.fq"), os.path.join(workdir, "cli_2.fq")]
+    synthetic.write_fastq(paths[0], gap_state["r1"], 1)
+    synthetic.write_fastq(paths[1], gap_state["r2"], 2)
+    out = os.path.join(workdir, "cli")
+    cmd = [sys.executable, "-m", "spades_tpu_torch.pipeline.main", "-1", paths[0],
+           "-2", paths[1], "-k", str(gap_state["k"]), "--only-assembler", "-o", out]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=timeout_s)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the CLI exited with {proc.returncode}: {proc.stderr[-2000:]}")
+    for name in ("contigs.fasta", "scaffolds.fasta"):
+        check(read_bytes(os.path.join(out, name))
+              == read_bytes(os.path.join(gap_state["out"], name)),
+              f"CLI: {name} differs from the library call's")
+    with open(os.path.join(out, "spades.log")) as fh:
+        found = re.findall(r"kernel launches: canonical_windows=(\d+)", fh.read())
+    check(len(found) == 1, "CLI: its log does not say how often it launched the kernel")
+    launches = int(found[0])
+    check(launches > 0 or dev.type == "cpu", "CLI: the canonical-windows kernel was not launched")
+    with open(os.path.join(out, "run_spades.yaml")) as fh:
+        yaml_lines = fh.read().count("\n")
+    return {"phase": "cli", "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+            "command": " ".join(os.path.relpath(c, workdir) if c.startswith(workdir) else c
+                                for c in cmd[1:]),
+            "wall_s": wall_s,
+            "launches": launches, "run_spades_yaml_lines": yaml_lines}, launches
+
+
+# ---------------------------------------------------------------------------
+# 8. the shapes the paths gave the kernel that phase 2 did not hold
 # ---------------------------------------------------------------------------
 
 def phase_observed_shapes(dev, observed, held, max_groups: int = 40) -> dict:
@@ -893,9 +1042,12 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         del state
-        rec, gap_launches, shapes = phase_gap(dev, workdir, seed, gap_genome,
-                                              n_gaps=gap_count)
+        rec, gap_launches, shapes, gap_state = phase_gap(dev, workdir, seed, gap_genome,
+                                                         n_gaps=gap_count)
         observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        rec, cli_launches = phase_cli(dev, workdir, gap_state)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
     finally:
@@ -905,7 +1057,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     seen["total_s"] = time.perf_counter() - t0
     emit(seen)
     return kernels_line(kern, seen, {"construction": main_launches, "mapping": map_launches,
-                                     "assembly": asm_launches, "gap_closing": gap_launches})
+                                     "assembly": asm_launches, "gap_closing": gap_launches,
+                                     "cli": cli_launches})
 
 
 def main(argv=None) -> int:
@@ -923,9 +1076,9 @@ def main(argv=None) -> int:
         return 3
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
-    # a bacterial isolate: 5 Mb at 40x, and the first 50,000 pairs for the
+    # a bacterial isolate: 5 Mb at 40x, and the first 20,000 pairs for the
     # comparison with the CPU path
-    kernels = run(dev, genome_size=5_000_000, coverage=40, subset_pairs=50_000,
+    kernels = run(dev, genome_size=5_000_000, coverage=40, subset_pairs=20_000,
                   seed=args.seed)
     print(nvidia_smi_line(), flush=True)
     emit(kernels)

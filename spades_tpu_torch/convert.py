@@ -4,7 +4,8 @@ The assembler has no weights; what crosses between the two packages is
 state: counted (k+1)-mers, the extension index, the condensed graph, the
 edge k-mer index of the read mapper, and what the stages of an assembly hand
 on (the coverage model's `GenomicInfo`, a `SimplifyConfig`, the `KmerMapper`
-of glued k-mers, contigs).
+of glued k-mers, contigs, and for repeat resolution the paired indices, the
+insert-size estimate and the paths).
 Each function takes that state as a dict of numpy arrays and scalars, as
 `dataclasses.asdict` gives it for `spades_tpu`'s `KmerCounts`,
 `ExtensionIndex`, `CondensedGraph`, `EdgeIndex`, `GenomicInfo` or
@@ -23,6 +24,8 @@ from .graph.simplify import SimplifyConfig
 from .io.contigs import Contig
 from .ops.count import KmerCounts
 from .ops.extension import ExtensionIndex
+from .paired.paired_info import InsertSizeStats, PairedIndex
+from .paired.path_extend import Path
 
 
 def counts_from_arrays(d: dict) -> KmerCounts:
@@ -109,3 +112,26 @@ def contigs_from_records(records) -> list[Contig]:
     """Contigs from (name, seq, coverage, edge_id) tuples."""
     return [Contig(name=str(n), seq=str(s), coverage=float(c), edge_id=int(e))
             for n, s, c, e in records]
+
+
+def paired_index_from_arrays(d: dict) -> PairedIndex:
+    """A `PairedIndex` from its four columns.  `dist` keeps its dtype: int64
+    in a raw index, float64 once clustered."""
+    return PairedIndex(
+        e1=np.array(d["e1"], np.int64),
+        e2=np.array(d["e2"], np.int64),
+        dist=np.array(d["dist"]),
+        weight=np.array(d["weight"], np.float64),
+    )
+
+
+def insert_size_stats_from_list(v) -> InsertSizeStats:
+    """`InsertSizeStats` from [median, mad, mean, count], the order in which
+    a checkpoint's `state.json` stores it."""
+    return InsertSizeStats(float(v[0]), float(v[1]), float(v[2]), int(v[3]))
+
+
+def paths_from_lists(records) -> list[Path]:
+    """Paths from (edges, gaps) pairs of int lists."""
+    return [Path([int(e) for e in edges], [int(x) for x in gaps])
+            for edges, gaps in records]

@@ -4,9 +4,11 @@ The outer loop mirrors `spades_pipeline/stages/spades_stage.py:282-396`
 (per-K IterationStage chain with additional_contigs feed-forward, then final
 copy) on top of the inner stage manager (pipeline/stages.py).
 
-Ported so far: `mode="multicell"` without repeat resolution
-(`disable_rr=True`, SPAdes' `--disable-rr`).  Every argument that asks for a
-stage not ported yet raises `NotImplementedError`; nothing is skipped.
+Ported so far: `mode="multicell"` and `mode="isolate"` (the same stage
+list: no stage branches on isolate), with repeat resolution on the last K
+(PairInfoCount, DistanceEstimation, RepeatResolution) unless `disable_rr`.
+Every argument that asks for a stage not ported yet raises
+`NotImplementedError`; nothing is skipped.
 """
 from __future__ import annotations
 
@@ -22,9 +24,12 @@ from .. import resolve_device
 from .spades_stages import (
     Construction,
     ContigOutput,
+    DistanceEstimation,
     GapClosing,
     GenomicInfoFiller,
+    PairInfoCount,
     RawSimplification,
+    RepeatResolution,
     Simplification,
 )
 from .stages import AssemblyContext, SavesPolicy, StageManager
@@ -61,17 +66,15 @@ def mode_simplify_config(mode: str, read_length: int) -> SimplifyConfig:
     return cfg
 
 
-def _refuse_unported(*, mode, disable_rr, mismatch_correction, long_reads,
+def _refuse_unported(*, mode, mismatch_correction, long_reads,
                      assembly_graph, series_analysis, ss, hmm_profiles) -> None:
     """Raise for every argument whose stages are not ported yet, naming the
     ROADMAP item that ports them."""
-    if mode != "multicell":
+    if mode not in ("multicell", "isolate"):
+        # meta's two-step repeat resolution (SecondPhaseSetup) goes with it
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP A13); only 'multicell' is")
-    if not disable_rr:
-        raise NotImplementedError(
-            "repeat resolution (PairInfoCount, DistanceEstimation, "
-            "RepeatResolution) is not ported yet (ROADMAP A9); pass disable_rr=True")
+            f"mode {mode!r} is not ported yet (ROADMAP A13); "
+            "only 'multicell' and 'isolate' are")
     if mismatch_correction:
         raise NotImplementedError(
             "careful mode / mismatch correction is not ported yet (ROADMAP A11)")
@@ -115,7 +118,7 @@ def run_assembly(
     if mismatch_correction is None:
         mismatch_correction = careful
     _refuse_unported(
-        mode=mode, disable_rr=disable_rr, mismatch_correction=mismatch_correction,
+        mode=mode, mismatch_correction=mismatch_correction,
         long_reads=long_reads, assembly_graph=assembly_graph,
         series_analysis=series_analysis, ss=ss, hmm_profiles=hmm_profiles,
     )
@@ -184,7 +187,8 @@ def run_assembly(
         restart_k = int(kpart[1:])
         restart_stage = spart or None
 
-    for k in k_list:
+    for ki, k in enumerate(k_list):
+        is_last = ki == len(k_list) - 1
         kdir = os.path.join(output_dir, f"K{k}")
         os.makedirs(kdir, exist_ok=True)
         ctx = AssemblyContext(
@@ -229,8 +233,13 @@ def run_assembly(
                 config_overlay, "simplification",
             )),
             GapClosing("late"),
-            ContigOutput(gfa_version=gfa_version),
         )
+        if is_last and not disable_rr:
+            # repeat resolution runs on the main (last) iteration only
+            # (pipeline.cpp: RepeatResolution gated on main_iteration,
+            # preceded by PairInfoCount + DistanceEstimation)
+            mgr.add(PairInfoCount(), DistanceEstimation(), RepeatResolution())
+        mgr.add(ContigOutput(gfa_version=gfa_version))
         start = None
         if restart_from == "last":
             start = "last"

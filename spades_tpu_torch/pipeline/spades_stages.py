@@ -1,14 +1,19 @@
 """Concrete per-K assembly stages (the spades-core stage list).
 
 Mirrors SPAdes' `src/projects/spades/pipeline.cpp:263-298` (stage list by
-mode).  Ported so far: the stages of an assembly without repeat resolution,
-Construction through ContigOutput.  Pair info, distance estimation, repeat
-resolution, mismatch correction and the mode-specific stages are not here yet.
+mode).  Ported so far: the stages of a multicell / isolate assembly,
+Construction, GenomicInfoFiller, RawSimplification, GapClosing,
+Simplification, PairInfoCount, DistanceEstimation, RepeatResolution and
+ContigOutput.  Mismatch correction (careful mode) and the mode-specific
+stages (hybrid, RNA, plasmid, meta's second phase, domains) are not here yet.
 """
 from __future__ import annotations
 
 import logging
 import os
+import time
+
+import numpy as np
 
 from ..graph.coverage_model import fit_coverage_model
 from ..graph.simplify import SimplifyConfig, simplify
@@ -25,6 +30,11 @@ CONSTRUCT_PHASES: list[tuple[int, dict]] = []
 # (k, stage id, close_gaps stats dict) trail: prefilter candidates, pairs,
 # prefilter_s, map_s and closed gaps of every GapClosing run
 GAP_CLOSER_STATS: list[tuple[int, str, dict]] = []
+# (k, stage id, stats dict) trail of the repeat-resolution stages: per paired
+# library of PairInfoCount its pairs, mapped mates, insert-size estimate, raw
+# index entries and times; DistanceEstimation's clustered, improved and
+# scaffolding index sizes; RepeatResolution's paths and scaffolds
+RR_STATS: list[tuple[int, str, dict]] = []
 
 
 class Construction(AssemblyStage):
@@ -254,3 +264,286 @@ class ContigOutput(AssemblyStage):
         log.info("%d contigs -> %s", len(ctx.contigs), d)
         if ctx.contigs:
             log.info("assembly stats: %s", _assembly_stats(ctx.contigs))
+
+
+class PairInfoCount(AssemblyStage):
+    """Map paired libraries to the graph, estimate insert sizes, fill the raw
+    (unclustered) paired indices (pair_info_count.cpp:1-60)."""
+
+    name = "Paired Information Counting"
+    id = "pair_info_count"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        ctx.raw_pair_libs = []
+        if not (ctx.paired or ctx.paired_stores) or ctx.graph is None \
+                or ctx.graph.num_edges == 0:
+            log.info("no paired libraries — skipping pair info count")
+            return
+        if ctx.paired_stores:
+            self._run_stores(ctx)
+            return
+        from ..alignment.mapper import build_edge_index, map_read_batch
+        from ..io.libraries import iter_fr_libs
+        from ..paired.paired_info import build_paired_index, estimate_insert_size
+
+        idx = build_edge_index(ctx.graph)
+        for r1s, r2s, lib_type in iter_fr_libs(ctx.paired):
+            m1 = map_read_batch(idx, ctx.graph, r1s, kmer_mapper=ctx.kmer_mapper,
+                                device=ctx.device)
+            m2 = map_read_batch(idx, ctx.graph, r2s, kmer_mapper=ctx.kmer_mapper,
+                                device=ctx.device)
+            st = estimate_insert_size(
+                ctx.graph, m1, m2, [len(r) for r in r1s], [len(r) for r in r2s]
+            )
+            log.info(
+                "%s library: %d pairs mapped, insert size %.1f +- %.1f (%d obs)",
+                lib_type, sum(m is not None for m in m1), st.median, st.mad, st.count,
+            )
+            if st.count == 0 or st.median <= 0:
+                continue
+            raw = build_paired_index(
+                ctx.graph, m1, m2, [len(r) for r in r2s], st.median
+            )
+            ctx.raw_pair_libs.append((lib_type, raw, st))
+
+    def _run_stores(self, ctx: AssemblyContext) -> None:
+        """Packed-store path: shared MappingEngine + the vectorized
+        `*_arrays` index functions (no per-pair Python loop, no re-encoding).
+
+        The right mate is stored reverse-complemented (forward strand), so
+        its mapping relates to the original read2's as
+        edge = conj(edge_rc), start = len(edge) - (start_rc + rl); the
+        array functions below take the original-orientation convention."""
+        from ..paired.paired_info import (
+            build_paired_index_arrays,
+            estimate_insert_size_arrays,
+        )
+
+        g = ctx.graph
+        t0 = time.perf_counter()
+        engine = ctx.mapping_engine()
+        engine._device_index()
+        t_idx = time.perf_counter() - t0
+        for st1, st2rc, lib_type in ctx.paired_stores:
+            if st1.n == 0 or st2rc.n == 0:
+                log.info("%s library: empty — skipped", lib_type)
+                continue
+            t0 = time.perf_counter()
+            e1, s1, _ = engine.map_store(st1, kmer_mapper=ctx.kmer_mapper)
+            e2r, s2r, _ = engine.map_store(st2rc, kmer_mapper=ctx.kmer_mapper)
+            t_map = time.perf_counter() - t0
+            log.info("pair info: index %.1fs, mapping %.1fs", t_idx, t_map)
+            # convert the RC-mate mapping back to original-read2 orientation:
+            # rc(read2) maps at (e, s) => read2 maps at (conj e, L - k_nt...)
+            rl2 = np.concatenate([ch.lengths[: ch.n] for ch in st2rc.chunks])
+            ok2 = e2r >= 0
+            e2 = np.where(ok2, np.asarray(g.e_conj)[np.maximum(e2r, 0)], -1)
+            L2 = np.asarray(g.e_len)[np.maximum(e2, 0)]
+            s2 = np.where(ok2, L2 - (s2r + rl2[: len(e2r)]), 0)
+            st = estimate_insert_size_arrays(g, e1, s1, e2, s2)
+            log.info(
+                "%s library: %d pairs mapped, insert size %.1f +- %.1f (%d obs)",
+                lib_type, int((e1 >= 0).sum()), st.median, st.mad, st.count,
+            )
+            stats = {
+                "lib_type": lib_type, "pairs": int(st1.n),
+                "mapped_left": int((e1 >= 0).sum()), "mapped_right": int(ok2.sum()),
+                "mapped_both": int(((e1 >= 0) & ok2).sum()),
+                "is_median": st.median, "is_mad": st.mad, "is_mean": st.mean,
+                "is_count": st.count, "index_s": t_idx, "map_s": t_map,
+                "index_timings": dict(engine.index_timings), "raw_entries": 0,
+            }
+            RR_STATS.append((ctx.k, self.id, stats))
+            if st.count == 0 or st.median <= 0:
+                continue
+            raw = build_paired_index_arrays(g, e1, s1, e2, s2, st.median)
+            stats["raw_entries"] = int(raw.e1.size)
+            ctx.raw_pair_libs.append((lib_type, raw, st))
+
+
+class DistanceEstimation(AssemblyStage):
+    """Cluster the raw paired indices into point-estimate distance indices
+    (distance_estimation.cpp:33; per-library estimator choice of
+    distance_estimation_utils.cpp: mate-pairs -> smoothing, scaffolding-only)."""
+
+    name = "Distance Estimation"
+    id = "distance_estimation"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        from ..paired.distance_estimation import estimate_distances
+        from ..paired.paired_info import merge_paired_indices
+
+        ctx.paired_index = ctx.scaffold_index = ctx.mp_index = None
+        ctx.is_stats = None
+        if not ctx.raw_pair_libs:
+            return
+        pe_indices, mp_indices = [], []
+        for lib_type, raw, st in ctx.raw_pair_libs:
+            clustered = estimate_distances(raw, lib_type)
+            if lib_type == "mate-pairs":
+                mp_indices.append(clustered)
+            else:
+                pe_indices.append(clustered)
+                ctx.is_stats = st
+        if ctx.is_stats is None:
+            log.info("no usable insert-size estimate")
+            return
+        ctx.insert_size = ctx.is_stats.median
+        ctx.paired_index = merge_paired_indices(pe_indices)
+        clustered_entries = int(ctx.paired_index.e1.size)
+        # contradiction removal + split-path fill-in before RR
+        # (distance_estimation_utils.cpp:141-143 PairInfoImprover)
+        from ..paired.pair_info_improver import improve_paired_info
+
+        ctx.paired_index, imp = improve_paired_info(
+            ctx.graph, ctx.paired_index,
+            insert_size=ctx.is_stats.median,
+            is_var=max(ctx.is_stats.mad, 1.0),
+        )
+        if imp.removed or imp.added:
+            log.info(
+                "pair info improver: removed %d contradictional, added %d",
+                imp.removed, imp.added,
+            )
+        ctx.scaffold_index = merge_paired_indices(pe_indices + mp_indices)
+        if mp_indices:
+            ctx.mp_index = merge_paired_indices(mp_indices)
+        RR_STATS.append((ctx.k, self.id, {
+            "clustered_entries": clustered_entries,
+            "improved_entries": int(ctx.paired_index.e1.size),
+            "removed": imp.removed, "added": imp.added,
+            "scaffold_entries": int(ctx.scaffold_index.e1.size),
+            "mp_entries": 0 if ctx.mp_index is None else int(ctx.mp_index.e1.size),
+        }))
+        log.info(
+            "clustered paired index: %d entries (%d scaffolding)",
+            len(ctx.paired_index.e1), len(ctx.scaffold_index.e1),
+        )
+
+
+class RepeatResolution(AssemblyStage):
+    """exSPAnder path extension + scaffolding (repeat_resolving.cpp:17-80).
+
+    Maps paired libraries to the simplified graph, estimates insert size,
+    builds the clustered paired index, then runs greedy path extension and
+    pair-info scaffolding.  Without usable paired data, contigs fall back to
+    graph edges (SPAdes behaves the same in --only-assembler single-lib
+    corner cases)."""
+
+    name = "Repeat Resolving"
+    id = "repeat_resolving"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        from ..io.contigs import Contig
+        from ..paired.path_extend import (
+            PEConfig,
+            make_chooser_chain,
+            path_coverage,
+            path_sequence,
+            resolve_repeats,
+            scaffold_paths,
+            traverse_loops,
+        )
+
+        if ctx.graph is None or ctx.graph.num_edges == 0:
+            log.info("empty graph — skipping repeat resolution")
+            return
+        if ctx.paired_index is None:
+            # stage list without explicit PairInfoCount/DistanceEstimation
+            # (direct library use) — run them in place
+            PairInfoCount().run(ctx)
+            DistanceEstimation().run(ctx)
+        if ctx.paired_index is None or ctx.is_stats is None:
+            log.info("no usable paired info — skipping repeat resolution")
+            return
+        is_stats = ctx.is_stats
+        pi = ctx.paired_index
+        scaffold_pi = ctx.scaffold_index
+        cfg = PEConfig(
+            insert_size=is_stats.median,
+            is_var=max(is_stats.mad, 10.0),
+            read_length=ctx.read_length,
+        )
+        from .config_overlay import apply_overlay
+
+        apply_overlay(cfg, getattr(ctx, "config_overlay", None), "path_extend")
+        # per-library composite extender chain in SPAdes' order
+        # (extenders_logic.cpp:469-548); clustered per-lib indices come from
+        # DistanceEstimation's raw_pair_libs pass
+        from ..paired.distance_estimation import estimate_distances
+
+        lib_chain = [
+            (lt, estimate_distances(raw, lt), st)
+            for lt, raw, st in (ctx.raw_pair_libs or [])
+        ]
+        choosers = make_chooser_chain(
+            pair_libs=lib_chain,
+            long_reads=ctx.long_read_storage,
+            ss_cov=ctx.ss_cov,
+            mode=ctx.mode,
+            merged_pi=pi,
+        )
+        paths = resolve_repeats(ctx.graph, pi, cfg, choosers=choosers)
+        n_loops = traverse_loops(ctx.graph, paths, cfg)
+        if n_loops:
+            log.info("loop traverser joined %d path pairs", n_loops)
+        from ..paired.path_extend import trim_end_overlaps
+
+        n_trim = trim_end_overlaps(ctx.graph, paths)
+        if n_trim:
+            log.info("overlap remover trimmed %d shared end edges", n_trim)
+        log.info("%d paths after extension", len(paths))
+
+        def to_contigs(path_list, prefix="NODE"):
+            """Contigs ordered by length, with their edge paths retained for
+            the .paths output (bidirectional_path_io)."""
+            rows = sorted(
+                (
+                    (path_sequence(ctx.graph, p), path_coverage(ctx.graph, p), p)
+                    for p in path_list
+                ),
+                key=lambda t: -len(t[0]),
+            )
+            contigs, named_paths = [], []
+            for i, (s, c, p) in enumerate(rows):
+                name = f"{prefix}_{i+1}_length_{len(s)}_cov_{c:.6f}"
+                contigs.append(Contig(name=name, seq=s, coverage=c, edge_id=-1))
+                named_paths.append((name, p))
+            return contigs, named_paths
+
+        ctx.contigs, ctx.contig_paths = to_contigs(paths)
+        scaffolds = scaffold_paths(ctx.graph, scaffold_pi, paths, cfg)
+        n_scaffolded = len(scaffolds)
+        sg = None
+        if ctx.mp_index is not None:
+            # mate-pair scaffold graph pass (scaffolder2015): join remaining
+            # paths along unambiguous long-edge links
+            from ..paired.path_extend import (
+                build_scaffold_graph_2015,
+                scaffold_with_graph_2015,
+            )
+
+            sg = build_scaffold_graph_2015(ctx.graph, ctx.mp_index)
+            scaffolds = scaffold_with_graph_2015(ctx.graph, sg, scaffolds, cfg)
+            log.info(
+                "mate-pair scaffold graph: %d vertices, %d links",
+                sg.num_vertices, sg.num_edges,
+            )
+        # PathPolisher: replace scaffold N-gaps with real graph paths when a
+        # bounded search finds a unique connection (launcher.cpp:477-510)
+        from ..paired.path_extend import polish_paths, refine_scaffold_gaps
+
+        scaffolds = polish_paths(ctx.graph, scaffolds, cfg)
+        # composite gap analyzer (LA + Hamming) over the remaining N-gaps
+        scaffolds = refine_scaffold_gaps(ctx.graph, scaffolds, cfg)
+        ctx.scaffolds, ctx.scaffold_paths = to_contigs(scaffolds)
+        RR_STATS.append((ctx.k, self.id, {
+            "paths": len(paths), "loops_joined": n_loops, "overlaps_trimmed": n_trim,
+            "after_scaffolding": n_scaffolded,
+            "scaffold_graph_links": None if sg is None else sg.num_edges,
+            "scaffolds": len(ctx.scaffolds),
+        }))
+        log.info(
+            "%d contigs, %d scaffolds after repeat resolution",
+            len(ctx.contigs), len(ctx.scaffolds),
+        )

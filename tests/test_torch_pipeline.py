@@ -408,8 +408,8 @@ def test_assembler_matches(ladder_reads, lowered):
 # -- what is not ported raises ---------------------------------------------------
 
 @pytest.mark.parametrize("kw, item", [
-    ({"disable_rr": False}, "A9"),
-    ({}, "A9"),                                    # disable_rr defaults to False
+    ({"mode": "sc"}, "A13"),                       # disable_rr defaults to False
+    ({"mode": "meta"}, "A13"),                     # meta's two-step repeat resolution
     ({"disable_rr": True, "careful": True}, "A11"),
     ({"disable_rr": True, "mismatch_correction": True}, "A11"),
     ({"disable_rr": True, "long_reads": ["ACGT" * 30]}, "A13"),
