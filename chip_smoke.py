@@ -16,22 +16,39 @@
    read of one `ReadStore` (device-built edge index, search, vote) and the tip
    prefilter `hit_filter_store`, checked against the sequence pool, the host
    index build and the port's CPU path, with the time of each part.
-5. Assembly of the same isolate: `run_assembly(k_list=[21, 33, 55])`,
-   reads to repeat-resolved contigs and scaffolds (PairInfoCount maps every
-   read onto the simplified k=55 graph, DistanceEstimation, RepeatResolution).
-   Graph invariants after every stage, the native library, the insert-size
-   estimate and the mapped share of the pairs, the device index of the
-   simplified k=55 graph (its upper row tiers) against the host build,
-   contigs and broken scaffolds against the genome, the output files.
-6. Gap closing with repeat resolution: a 300 kb genome whose pairs are
-   thinned at planted positions so that k=55 tips overlap by 10 to 45 bases,
-   assembled at k=55 on the card and on the CPU; gaps must close and the two
-   results (raw and clustered pair indices, paths, contigs, scaffolds) must
-   be equal.
-7. The CLI: the gap dataset as FASTQ through `python -m
-   spades_tpu_torch.pipeline.main --only-assembler -k 55` on the card, in a
-   subprocess; its contigs and scaffolds must equal phase 6's card run.
-8. Every shape phases 3 to 7 gave the kernel that phase 2 did not hold yet,
+5. Read error correction of the same isolate (`hammer.correct_reads`, the
+   default path's first step) at full width, with PHRED qualities drawn from
+   the seed (lower on the planted substitutions): the time of each step,
+   the kernel's launches from its two callers (21-mer counting, the window
+   maps), the CUDA-event time of every batch of the quality sum and the
+   vote, the peak device memory, and the planted substitutions fixed and
+   the bases wrongly changed, from the reads before their errors.
+6. Assembly of the corrected reads in careful mode: `run_assembly(k_list=
+   [21, 33, 55], careful=True)`, reads to mismatch-corrected,
+   repeat-resolved contigs and scaffolds (MismatchCorrection and
+   PairInfoCount map every read onto the simplified k=55 graph,
+   DistanceEstimation, RepeatResolution).  Graph invariants after every
+   stage, the native library, the k=55 counts against a direct count of the
+   corrected reads, the insert-size estimate and the mapped share of the
+   pairs, the device index of the simplified k=55 graph (its upper row
+   tiers) against the host build, contigs and broken scaffolds against the
+   genome, the output files.
+7. Error correction, gap closing, careful mode and repeat resolution, card
+   against CPU: a 300 kb genome whose pairs are thinned at planted positions
+   so that k=55 tips overlap by 10 to 45 bases, with qualities as in 5, is
+   corrected with its qualities and without them, and the reads corrected
+   without them (as the CLI's FASTQ parser keeps no qualities) are
+   assembled at k=55 (`careful=True`), on the card and on the CPU; gaps
+   must close and the two results (corrected reads, statistics, cluster
+   labels, quality sums bit for bit, the graph after MismatchCorrection, raw
+   and clustered pair indices, paths, contigs, scaffolds) must be equal.  Each device program of error correction and
+   careful mode (window maps, quality sum, expansion, vote, vote scatter) is
+   held against its plain numpy version on the card, and timed.
+8. The CLI's default path: the gap dataset as FASTQ with its qualities
+   through `python -m spades_tpu_torch.pipeline.main -k 55 --careful` on the
+   card, in a subprocess; its corrected reads, contigs and scaffolds must
+   equal phase 7's card run.
+9. Every shape phases 3 to 8 gave the kernel that phase 2 did not hold yet,
    against the plain version and timed.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
@@ -44,6 +61,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -219,7 +237,8 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
 
     wall = {}
     t0 = time.perf_counter()
-    genome, r1, r2 = synthetic.make_e2e_dataset(genome_size, coverage, rl, 0.003, seed)
+    genome, r1, r2, c1, c2 = synthetic.make_e2e_dataset(genome_size, coverage, rl, 0.003,
+                                                        seed, truth=True)
     wall["make_data_s"] = time.perf_counter() - t0
     n_pairs = r1.shape[0]
     n_reads = 2 * n_pairs
@@ -300,8 +319,7 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
         "peak_device_gib": peak_gib,
     }
     return rec, main_launches, {"store": store, "graph": res_g.graph, "n_pairs": n_pairs,
-                                "p1_k55": res_g.p1_counts, "genome": genome,
-                                "r1": r1, "r2": r2}
+                                "genome": genome, "r1": r1, "r2": r2, "c1": c1, "c2": c2}
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +488,126 @@ def phase_mapping(dev, state, subset_pairs: int, seed: int, n_tips: int = 10_000
 
 
 # ---------------------------------------------------------------------------
-# 5. assembly of the isolate: reads to repeat-resolved contigs and scaffolds
+# 5. read error correction of the isolate at full width
+# ---------------------------------------------------------------------------
+
+def as_strings(letters) -> list:
+    """(n, rl) uint8 ASCII rows -> strings."""
+    import numpy as np
+
+    rl = letters.shape[1]
+    return np.ascontiguousarray(letters).view(f"S{rl}").ravel().astype(f"U{rl}").tolist()
+
+
+def read_strings(codes) -> list:
+    """(n, rl) uint8 base codes -> strings."""
+    import numpy as np
+
+    return as_strings(np.frombuffer(b"ACGT", np.uint8)[codes])
+
+
+def as_codes(seqs, rl: int):
+    """Strings of length rl -> (n, rl) uint8 codes, N as 4."""
+    import numpy as np
+
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    return lut[np.frombuffer("".join(seqs).encode(), np.uint8).reshape(-1, rl)]
+
+
+def per_batch(ms) -> dict:
+    """Summary of per-batch CUDA-event milliseconds."""
+    if not ms:
+        return {"batches": 0}
+    return {"batches": len(ms), "mean_ms": sum(ms) / len(ms), "max_ms": max(ms),
+            "total_ms": sum(ms)}
+
+
+def correction_quality(fixed, reads, clean) -> dict:
+    """Planted substitutions (reads against the reads before their errors)
+    that correction fixed, left, or changed to another wrong base, and the
+    right bases it changed."""
+    planted = reads != clean
+    return {"planted": int(planted.sum()),
+            "fixed": int((planted & (fixed == clean)).sum()),
+            "left": int((planted & (fixed == reads)).sum()),
+            "miscalled": int((planted & (fixed != clean) & (fixed != reads)).sum()),
+            "wrongly_changed": int((~planted & (fixed != clean)).sum()),
+            "reads_touched": int((fixed != reads).any(axis=1).sum())}
+
+
+def phase_error_correction(dev, state, seed: int, rl: int = 150):
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.hammer import correct_reads
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.tools import synthetic
+
+    wall = {}
+    t0 = time.perf_counter()
+    r1, r2, c1, c2 = state["r1"], state["r2"], state["c1"], state["c2"]
+    q = [synthetic.error_qualities(r, c, seed + 11 + i) for i, (r, c) in
+         enumerate(((r1, c1), (r2, c2)))]
+    seqs = read_strings(r1) + read_strings(r2)
+    quals = as_strings(q[0]) + as_strings(q[1])
+    wall["make_strings_s"] = time.perf_counter() - t0
+
+    # -- the error-correction path: launch counts from 0, read right after ---
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    CK.canonical_window_keys.launches = 0
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    tm = {}
+    t0 = time.perf_counter()
+    out, st = correct_reads(seqs, quals=quals, device=dev, record=tm)
+    sync(dev)
+    wall["correct_reads_s"] = time.perf_counter() - t0
+    launches = CK.canonical_window_keys.launches
+    CK.canonical_window_keys.launch_shapes = None
+    peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                else None)
+    by_caller = collections.Counter()
+    for (_R, _L, k, strand), n in shapes.items():
+        by_caller[f"{'window_maps' if strand else 'count'} k={k}"] += n
+
+    # -- checks ---------------------------------------------------------------
+    n = r1.shape[0]
+    fixed = as_codes(out, rl)
+    reads, clean = np.concatenate([r1, r2]), np.concatenate([c1, c2])
+    quality = correction_quality(fixed, reads, clean)
+    check(len(out) == 2 * n and st.reads_total == 2 * n, "error correction lost reads")
+    check(dev.type == "cpu" or (by_caller.get("count k=21", 0) > 0
+                                and by_caller.get("window_maps k=21", 0) > 0),
+          f"error correction: the kernel was not launched by both callers: {dict(by_caller)}")
+    check(st.bases_changed == int((fixed != reads).sum()),
+          "error correction: its statistics do not count the bases it changed")
+    check(quality["fixed"] >= 0.8 * quality["planted"],
+          f"error correction fixed {quality['fixed']} of {quality['planted']} planted "
+          f"substitutions, under 80 %")
+    check(quality["wrongly_changed"] <= 0.1 * quality["fixed"],
+          f"error correction changed {quality['wrongly_changed']} right bases")
+    steps = {k: v for k, v in tm.items() if k.endswith("_s")}
+    rec = {
+        "phase": "error_correction",
+        "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "reads": 2 * n, "quality_draw": {"right": [20, 40], "planted": [2, 12]},
+        "wall_s": wall, "steps_s": steps,
+        # CUDA-event time of the quality sum and the vote against the pass
+        "quality_and_vote_share": (sum(tm.get("quality_ms", [])) + sum(tm.get("vote_ms", [])))
+        / 1e3 / max(wall["correct_reads_s"], 1e-9),
+        "quality_sum_per_batch": per_batch(tm.get("quality_ms", [])),
+        "vote_per_batch": per_batch(tm.get("vote_ms", [])),
+        "stats": dataclasses.asdict(st), "correction": quality,
+        "launches": launches, "launches_by_caller": dict(sorted(by_caller.items())),
+        "peak_device_gib": peak_gib,
+    }
+    c1f, c2f = fixed[:n], fixed[n:]
+    return rec, launches, shapes, (c1f, c2f)
+
+
+# ---------------------------------------------------------------------------
+# 6. assembly of the corrected isolate in careful mode
 # ---------------------------------------------------------------------------
 
 STAGE_IDS = ("construction", "ec_threshold_finder", "raw_simplification",
@@ -479,13 +616,14 @@ RR_STAGE_IDS = ("pair_info_count", "distance_estimation", "repeat_resolving")
 
 
 def stage_ids(k_list) -> list:
-    """(k, stage id) of every stage `run_assembly` runs: repeat resolution
-    comes before ContigOutput, at the last K only."""
+    """(k, stage id) of every stage `run_assembly(careful=True)` runs:
+    mismatch correction and repeat resolution come before ContigOutput, at
+    the last K only."""
     out = []
     for k in k_list:
         ids = list(STAGE_IDS)
         if k == k_list[-1]:
-            ids[-1:-1] = RR_STAGE_IDS
+            ids[-1:-1] = ["mismatch_correction", *RR_STAGE_IDS]
         out += [(k, s) for s in ids]
     return out
 OUTPUT_FILES = ("contigs.fasta", "scaffolds.fasta", "assembly_graph_with_scaffolds.gfa",
@@ -498,8 +636,8 @@ def after_every_stage(hook):
     from spades_tpu_torch.pipeline import spades_stages as S
 
     classes = (S.Construction, S.GenomicInfoFiller, S.RawSimplification, S.GapClosing,
-               S.Simplification, S.PairInfoCount, S.DistanceEstimation, S.RepeatResolution,
-               S.ContigOutput)
+               S.Simplification, S.MismatchCorrection, S.PairInfoCount,
+               S.DistanceEstimation, S.RepeatResolution, S.ContigOutput)
     saved = [(cls, cls.run) for cls in classes]
 
     def hooked(run):
@@ -616,7 +754,7 @@ def check_index_against_host(name, prep, host_index, k) -> None:
               f"{name}: device-built index {col} differs from build_edge_index")
 
 
-def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
+def phase_assembly(dev, workdir: str, state, seed: int, corrected, k_list=(21, 33, 55),
                    rl: int = 150, n_sample: int = 200, total_tolerance: float = 0.02,
                    insert_mean: int = 400):
     import numpy as np
@@ -627,17 +765,23 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     from spades_tpu_torch.io.contigs import extract_contigs
     from spades_tpu_torch.io.gfa import read_gfa
     from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.ops.count import count_sequences
     from spades_tpu_torch.pipeline import spades_stages as S
     from spades_tpu_torch.pipeline import stages as ST
     from spades_tpu_torch.pipeline.run import run_assembly
 
     check(native.lib() is not None,
           "the native library did not load: simplification would take the numpy loop")
-    genome, r1, r2 = state["genome"], state["r1"], state["r2"]
+    genome, (r1, r2) = state["genome"], corrected
     k_last = k_list[-1]
     lefts, rights = list(r1), list(r2)
     per_stage = {}
     simplified = {}
+    # the (k+1)-mers of the corrected reads through the ReadBatch path, for the
+    # construction at k=55 (which counts them through the ReadStore path)
+    t0 = time.perf_counter()
+    p1_k55 = count_sequences(lefts + rights, 56, device=dev)
+    simplified["direct_count_k56_s"] = time.perf_counter() - t0
 
     def hook(stage, ctx):
         t_hook = time.perf_counter()
@@ -648,14 +792,14 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
             "edge_pairs": int(len(g.canonical_edge_ids())),
             "launches": CK.canonical_window_keys.launches,     # running total
         }
-        if stage.id == "construction" and ctx.k == 55 and "p1_k55" in state:
+        if stage.id == "construction" and ctx.k == 55:
             # prev-K contigs only add zero-count structure rows: the
-            # read-counted rows are exactly the gbuilder (ReadBatch path) table
-            p1, ref = ctx.p1_counts, state["p1_k55"]
+            # read-counted rows are exactly the ReadBatch path's table
+            p1, ref = ctx.p1_counts, p1_k55
             nz = p1.counts > 0
             check(np.array_equal(p1.words[nz], ref.words)
                   and np.array_equal(p1.counts[nz], ref.counts),
-                  "k=55: the ReadStore and ReadBatch (gbuilder) paths counted differently")
+                  "k=55: the ReadStore and ReadBatch paths counted differently")
             simplified["structure_rows_k55"] = int((~nz).sum())
         if stage.id == "gap_closer_late" and ctx.k == k_last and ctx._me is not None:
             # the closer's own engine on the simplified graph, where it mapped
@@ -668,6 +812,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     S.CONSTRUCT_PHASES.clear()
     S.GAP_CLOSER_STATS.clear()
     S.RR_STATS.clear()
+    S.MISMATCH_STATS.clear()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     CK.canonical_window_keys.launches = 0
@@ -676,7 +821,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     t0 = time.perf_counter()
     with after_every_stage(hook):
         res = run_assembly(lefts + rights, list(k_list), out, paired_libs=[(lefts, rights)],
-                           read_length=rl, device=dev, checkpoints="none")
+                           read_length=rl, device=dev, checkpoints="none", careful=True)
     sync(dev)
     wall_s = time.perf_counter() - t0
     launches = CK.canonical_window_keys.launches
@@ -706,6 +851,8 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     check([(k, s) for k, s, _ in ST.STAGE_TIMES] == stage_ids(k_list),
           f"assembly: the stages that ran are {[(k, s) for k, s, _ in ST.STAGE_TIMES]}")
     check(len(per_stage) == len(stage_ids(k_list)), "assembly: a stage was not checked")
+    check([k for k, _n in S.MISMATCH_STATS] == [k_last],
+          f"assembly: mismatch correction ran at {S.MISMATCH_STATS}, not once at k={k_last}")
     rr = {s: st for _k, s, st in S.RR_STATS}
     check(list(rr) == list(RR_STAGE_IDS) and len(S.RR_STATS) == 3,
           f"assembly: repeat-resolution records {[s for _, s, _ in S.RR_STATS]}")
@@ -777,7 +924,9 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
     rec = {
         "phase": "assembly",
         "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "input": "the corrected reads of phase 5", "careful": True,
         "k_list": list(k_list), "reads": int(2 * r1.shape[0]), "wall_s": wall_s,
+        "mismatch_correction_fixed": [n for _k, n in S.MISMATCH_STATS],
         "stage_times": {f"k={k} {s}": t for k, s, t in ST.STAGE_TIMES},
         "construction": {f"k={k}": tm for k, tm in S.CONSTRUCT_PHASES},
         "gap_closer": {f"k={k} {s}": st for k, s, st in S.GAP_CLOSER_STATS},
@@ -796,7 +945,8 @@ def phase_assembly(dev, workdir: str, state, seed: int, k_list=(21, 33, 55),
 
 
 # ---------------------------------------------------------------------------
-# 6. gap closing and repeat resolution, card against CPU
+# 7. error correction, gap closing, careful mode and repeat resolution, card
+#    against CPU; the device programs against their plain versions
 # ---------------------------------------------------------------------------
 
 RR_SAVES = (("pair_info_count", "raw_pairs_0.npz"), ("distance_estimation", "paired_index.npz"),
@@ -809,21 +959,138 @@ def read_bytes(path: str) -> bytes:
         return fh.read()
 
 
+def phase_programs(dev, seqs, quals, graph, k: int, batch: int = 8192,
+                   vote_reads: int = 65536) -> dict:
+    """Each device program of error correction and careful mode against its
+    plain numpy version on the same inputs, on the card, at the batch shapes
+    the main path gives it, tolerance 0 (integer work, and float32 sums
+    taken in the plain version's order), with the time of each: CUDA events
+    for the device program, the host clock for the plain version."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.alignment.mapper import build_edge_index
+    from spades_tpu_torch.core import kmers as K
+    from spades_tpu_torch.core.reads import ReadBatch
+    from spades_tpu_torch.hammer import bayes as B
+    from spades_tpu_torch.hammer import hammer as H
+    from spades_tpu_torch.hammer.clustering import cluster_kmers
+    from spades_tpu_torch.ops.count import count_sequences, unpack_batch_device
+    from spades_tpu_torch.parallel import sharded_mapping as SM
+    from spades_tpu_torch.tools.kernel_shapes import time_ms
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rec = {}
+    vote_seqs = seqs[:vote_reads]
+    clean = [s.upper().replace("N", "A") for s in seqs]
+    kc = count_sequences(clean, 21, device=dev)
+    # two batches of the main path's shape against the whole table
+    seqs, quals, clean = seqs[: 2 * batch], quals[: 2 * batch], clean[: 2 * batch]
+    maps = H.build_window_maps(seqs, kc.words, 21, batch, device=dev)
+    plain, plain_ms = host_ms(lambda: H.build_window_maps_plain(seqs, kc.words, 21, batch))
+    err = 0
+    for (_b, _n, i, pr, rc), (_pb, _pn, pi, pp, prc) in zip(maps, plain):
+        pr = pr.cpu().numpy()
+        err += int((pr != pp).sum() + (i.cpu().numpy()[pr] != pi[pp]).sum()
+                   + (rc.cpu().numpy()[pr] != prc[pp]).sum())
+    check(err == 0, f"window maps: card and plain version differ in {err} places")
+    rec["window_maps"] = {"batches": len(maps), "max_abs_err": err,
+                          "ms": time_ms(lambda: H.build_window_maps(seqs, kc.words, 21, batch,
+                                                                    device=dev), dev, 2),
+                          "plain_ms": plain_ms}
+
+    kq = B.accumulate_quality(kc, clean, quals, 21, maps=maps)
+    kq_plain, plain_ms = host_ms(lambda: B.accumulate_quality_plain(kc, quals, 21, plain))
+    diff = int((kq.pos_log_err.view(np.uint32) != kq_plain.pos_log_err.view(np.uint32)).sum())
+    check(diff == 0, f"quality sum: card and plain version differ in {diff} float32 bits")
+    rec["quality_sum"] = {"batches": len(maps), "max_abs_err": diff,
+                          "ms": time_ms(lambda: B.accumulate_quality(kc, clean, quals, 21,
+                                                                     maps=maps), dev, 2),
+                          "plain_ms": plain_ms}
+
+    solid0 = kc.counts >= 10
+    got, rounds = B.expand_solid(kc, solid0, clean, 21, 8, maps=maps)
+    (ref, rref), plain_ms = host_ms(lambda: B.expand_solid_plain(solid0, 21, plain, 8))
+    diff = int((got != ref).sum()) + abs(rounds - rref)
+    check(diff == 0, f"solid-set expansion: card and plain version differ ({diff})")
+    rec["expand_solid"] = {"rounds": rounds, "max_abs_err": diff,
+                           "ms": time_ms(lambda: B.expand_solid(kc, solid0, clean, 21, 8,
+                                                                maps=maps), dev, 2),
+                           "plain_ms": plain_ms}
+
+    labels = cluster_kmers(kc.words, 21)
+    centers, _tot = H._cluster_centers(kc.words, kc.counts, labels)
+    center_idx = centers[labels]
+    good_k = kc.counts[center_idx] >= 3
+    b, _n, idx, present, use_rc = maps[0]
+    ccodes = K.unpack(kc.words, 21)
+    safe = torch.where(idx >= 0, idx, 0).to(torch.int64)
+    cidx = torch.from_numpy(center_idx).to(dev)[safe]
+    good = present & torch.from_numpy(good_k).to(dev)[safe]
+    args = (torch.from_numpy(b.codes).to(dev), torch.from_numpy(ccodes).to(dev), cidx, use_rc,
+            good, 21, 0.5)
+    out, win = H._vote_correct_batch(*args)
+    oriented = ccodes[cidx.cpu().numpy()]
+    oriented = np.where(use_rc.cpu().numpy()[..., None], 3 - oriented[:, :, ::-1],
+                        oriented).astype(np.uint8)
+    (pout, pwin), plain_ms = host_ms(lambda: H._vote_correct_batch_plain(
+        b.codes, oriented, good.cpu().numpy(), 21, 0.5))
+    diff = int((out.cpu().numpy() != pout).sum() + (win.cpu().numpy() != pwin).sum())
+    check(diff == 0, f"vote: card and plain version differ in {diff} places")
+    rec["vote"] = {"reads": int(b.codes.shape[0]), "L": int(b.codes.shape[1]),
+                   "max_abs_err": diff, "ms": time_ms(lambda: H._vote_correct_batch(*args),
+                                                      dev, 5),
+                   "plain_ms": plain_ms, "changed": int((pout != b.codes).sum())}
+
+    # the vote scatter of careful mode, on the graph the assembly polished
+    index = build_edge_index(graph, k)
+    prep = SM.prepare_index_device(index, graph, dev)
+    rb = ReadBatch.from_sequences(vote_seqs)
+    pc, pn, lengths, L = rb.packed()
+    pc, pn, lengths = (torch.from_numpy(np.asarray(a)).to(dev) for a in (pc, pn, lengths))
+    e_off = torch.from_numpy(np.ascontiguousarray(graph.e_off, np.int32)).to(dev)
+    pool = len(graph.seq_pool)
+    votes = SM._votes_shard_body(pc, pn, lengths, *prep, e_off, k=k, L=L, pool_len=pool)
+    edge, start, _v = SM._map_shard_body(pc, pn, lengths, *prep, k=k, L=L)
+    codes, n_mask = unpack_batch_device(pc, pn, L)
+    pv, plain_ms = host_ms(lambda: SM.votes_plain(
+        codes.cpu().numpy(), n_mask.cpu().numpy(), lengths.cpu().numpy(), edge.cpu().numpy(),
+        start.cpu().numpy(), graph.e_len, graph.e_off, pool))
+    diff = int((votes.cpu().numpy() != pv).sum())
+    check(diff == 0 and pv.sum() > 0, f"vote scatter: card and plain version differ in {diff}")
+    rec["vote_scatter"] = {"reads": int(pc.shape[0]), "L": int(L), "pool": pool,
+                           "max_abs_err": diff,
+                           "ms": time_ms(lambda: SM._votes_shard_body(
+                               pc, pn, lengths, *prep, e_off, k=k, L=L, pool_len=pool), dev, 5),
+                           "map_ms": time_ms(lambda: SM._map_shard_body(
+                               pc, pn, lengths, *prep, k=k, L=L), dev, 5),
+                           "plain_ms": plain_ms, "votes": int(pv.sum())}
+    return rec
+
+
 def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage: int = 40,
               n_gaps: int = 30, k: int = 55, rl: int = 150):
     import numpy as np
     import torch
 
+    from spades_tpu_torch.hammer import correct_reads
     from spades_tpu_torch.ops import cuda_kernels as CK
     from spades_tpu_torch.pipeline import spades_stages as S
     from spades_tpu_torch.pipeline.run import run_assembly
     from spades_tpu_torch.tools import synthetic
 
-    _genome, r1, r2, gaps = synthetic.make_gapped_dataset(genome_size, coverage, rl, 0.003,
-                                                          seed + 1, n_gaps)
-    lefts, rights = list(r1), list(r2)
+    _genome, r1, r2, gaps, c1, c2 = synthetic.make_gapped_dataset(
+        genome_size, coverage, rl, 0.003, seed + 1, n_gaps, truth=True)
+    q1, q2 = (synthetic.error_qualities(r, c, seed + 21 + i)
+              for i, (r, c) in enumerate(((r1, c1), (r2, c2))))
+    seqs, quals = read_strings(r1) + read_strings(r2), as_strings(q1) + as_strings(q2)
+    n = r1.shape[0]
     results = {}
-    shapes = collections.Counter()
+    shapes_ec, shapes = collections.Counter(), collections.Counter()
     launches = 0
     wall = {}
     for where in (dev, torch.device("cpu")):
@@ -831,39 +1098,65 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
             continue
         S.GAP_CLOSER_STATS.clear()
         S.RR_STATS.clear()
+        S.MISMATCH_STATS.clear()
         out = os.path.join(workdir, f"gap_{where.type}")
         if where == dev:
             # -- the gap path: launch counts from 0, read right after ---------
             CK.canonical_window_keys.launches = 0
+            CK.canonical_window_keys.launch_shapes = shapes_ec
+        # with the qualities (the quality-aware path), then without them: the
+        # CLI reads FASTQ with the native parser, which keeps no qualities (as
+        # the JAX package's), so the assembly and the CLI take the count-only
+        # path's reads
+        tm = {}
+        t0 = time.perf_counter()
+        with_q = correct_reads(seqs, quals=quals, device=where, record=tm)
+        sync(where)
+        wall[f"{where.type}_correct_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fixed, st = correct_reads(seqs, device=where)
+        sync(where)
+        wall[f"{where.type}_correct_count_only_s"] = time.perf_counter() - t0
+        if where == dev:
             CK.canonical_window_keys.launch_shapes = shapes
+        lefts, rights = fixed[:n], fixed[n:]
         t0 = time.perf_counter()
         res = run_assembly(lefts + rights, [k], out, paired_libs=[(lefts, rights)],
-                           read_length=rl, device=where, checkpoints="all")
+                           read_length=rl, device=where, checkpoints="all", careful=True)
         sync(where)
-        wall[f"{where.type}_s"] = time.perf_counter() - t0
+        wall[f"{where.type}_assembly_s"] = time.perf_counter() - t0
         if where == dev:
             launches = CK.canonical_window_keys.launches
             CK.canonical_window_keys.launch_shapes = None
-        saves = {f"{st}/{f}": np.load(os.path.join(out, f"K{k}", "saves", st, f))
-                 for st, f in RR_SAVES}
+        saves = {f"{st_}/{f}": np.load(os.path.join(out, f"K{k}", "saves", st_, f))
+                 for st_, f in RR_SAVES + (("mismatch_correction", "graph.npz"),)}
         files = {f: read_bytes(os.path.join(out, f)) for f in RR_FILES}
-        results[where.type] = (res, files, [(s, dict(st)) for _, s, st in S.GAP_CLOSER_STATS],
-                               saves, {s: dict(st) for _, s, st in S.RR_STATS}, out)
+        results[where.type] = (res, files, [(s, dict(st_)) for _, s, st_ in S.GAP_CLOSER_STATS],
+                               saves, {s: dict(st_) for _, s, st_ in S.RR_STATS}, out,
+                               (with_q, (fixed, st), tm, list(S.MISMATCH_STATS)))
 
     got = results[dev.type]
     ref = results["cpu"]
-    closed = sum(st["closed"] for _, st in got[2])
+    closed = sum(st_["closed"] for _, st_ in got[2])
+    (with_q, (fixed, st), tm, mm), (rwith_q, rcount, rtm, rmm) = got[6], ref[6]
     check(launches > 0 or dev.type == "cpu",
           "gap phase: the canonical-windows kernel was not launched")
+    check(with_q == rwith_q and (fixed, st) == rcount,
+          "gap phase: device and CPU corrected the reads differently")
+    check(np.array_equal(tm["labels"], rtm["labels"]),
+          "gap phase: device and CPU cluster labels differ")
+    check(tm["pos_log_err"].view(np.uint32).tobytes() == rtm["pos_log_err"].view(np.uint32).tobytes(),
+          "gap phase: device and CPU quality sums differ in their float32 bits")
+    check(mm == rmm and len(mm) == 1, f"gap phase: mismatch correction {mm} against {rmm}")
     check(closed > 0, "gap phase: the gap closer closed no gap")
-    check([(s, st["candidates"], st["closed"]) for s, st in got[2]]
-          == [(s, st["candidates"], st["closed"]) for s, st in ref[2]],
+    check([(s, st_["candidates"], st_["closed"]) for s, st_ in got[2]]
+          == [(s, st_["candidates"], st_["closed"]) for s, st_ in ref[2]],
           "gap phase: candidates or closed gaps differ between the device and the CPU")
     for f in GRAPH_FIELDS:
         check(np.array_equal(getattr(got[0].graph, f), getattr(ref[0].graph, f)),
               f"gap phase: device and CPU graphs differ in {f}")
     for name, z in got[3].items():
-        for col in ("e1", "e2", "dist", "weight"):
+        for col in z.files:
             check(z[col].dtype == ref[3][name][col].dtype
                   and np.array_equal(z[col], ref[3][name][col]),
                   f"gap phase: device and CPU {name} differ in {col}")
@@ -871,44 +1164,65 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
         check(data == ref[1][name], f"gap phase: device and CPU {name} differ")
     check(len(got[0].scaffolds) > 0, "gap phase: repeat resolution made no scaffold")
     got[0].graph.check_invariants()
+    quality = {name: correction_quality(as_codes(out_, rl), np.concatenate([r1, r2]),
+                                        np.concatenate([c1, c2]))
+               for name, out_ in (("with_qualities", with_q[0]), ("count_only", fixed))}
+    t0 = time.perf_counter()
+    programs = phase_programs(dev, seqs, quals, got[0].graph, k)
+    wall["programs_s"] = time.perf_counter() - t0
 
+    ec_callers = collections.Counter()
+    for (_R, _L, kk, strand), cnt in shapes_ec.items():
+        ec_callers[f"{'hammer window_maps' if strand else 'hammer count'} k={kk}"] += cnt
     rec = {
         "phase": "gap_closing",
         "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
         "dataset": {"genome_nt": genome_size, "coverage": coverage, "read_len": rl,
-                    "pairs": int(r1.shape[0]), "planted_gaps": int(len(gaps)),
+                    "pairs": int(n), "planted_gaps": int(len(gaps)),
                     "overlaps": [int(gaps[:, 1].min()), int(gaps[:, 1].max())],
                     "seed": seed + 1},
-        "k": k, "wall_s": wall, "closed": closed,
-        "gap_closer": {s: st for s, st in got[2]},
+        "k": k, "careful": True, "wall_s": wall, "closed": closed,
+        "error_correction": {"stats": {"with_qualities": dataclasses.asdict(with_q[1]),
+                                       "count_only": dataclasses.asdict(st)},
+                             "correction": quality,
+                             "steps_s": {kk: v for kk, v in tm.items() if kk.endswith("_s")}},
+        "mismatch_correction_fixed": [c for _k, c in mm],
+        "gap_closer": {s: st_ for s, st_ in got[2]},
         "repeat_resolution": got[4],
-        "index_entries": {name: int(z["e1"].shape[0]) for name, z in got[3].items()},
+        "index_entries": {name: int(z["e1"].shape[0]) for name, z in got[3].items()
+                          if "e1" in z.files},
         "contig_stats": assembly_stats(got[0].contigs),
         "scaffold_stats": assembly_stats(got[0].scaffolds),
-        "launches": launches, "launches_by_caller": launches_by_caller(shapes),
+        "device_programs": programs,
+        "launches": launches,
+        "launches_by_caller": {**dict(sorted(ec_callers.items())), **launches_by_caller(shapes)},
     }
-    return rec, launches, shapes, {"r1": r1, "r2": r2, "k": k, "out": got[5]}
+    shapes.update(shapes_ec)
+    return rec, launches, shapes, {"r1": r1, "r2": r2, "q1": q1, "q2": q2, "k": k,
+                                   "out": got[5], "fixed": fixed}
 
 
 # ---------------------------------------------------------------------------
-# 7. the CLI in a subprocess, against the library call
+# 8. the CLI in a subprocess, against the library call
 # ---------------------------------------------------------------------------
 
 def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
-    """`python -m spades_tpu_torch.pipeline.main` on the gap dataset written
-    as FASTQ: its contigs and scaffolds must equal the in-process run's.  The
-    CLI logs how often it launched the kernel (a process of its own counts
-    from 0)."""
+    """`python -m spades_tpu_torch.pipeline.main -k 55 --careful` (the
+    default path: error correction first) on the gap dataset written as
+    FASTQ with its qualities: its corrected reads, contigs and scaffolds must
+    equal the in-process run's.  The CLI logs how often it launched the
+    kernel (a process of its own counts from 0)."""
     import re
 
+    from spades_tpu_torch.io.fastx import read_fastx
     from spades_tpu_torch.tools import synthetic
 
     paths = [os.path.join(workdir, "cli_1.fq"), os.path.join(workdir, "cli_2.fq")]
-    synthetic.write_fastq(paths[0], gap_state["r1"], 1)
-    synthetic.write_fastq(paths[1], gap_state["r2"], 2)
+    synthetic.write_fastq(paths[0], gap_state["r1"], 1, gap_state["q1"])
+    synthetic.write_fastq(paths[1], gap_state["r2"], 2, gap_state["q2"])
     out = os.path.join(workdir, "cli")
     cmd = [sys.executable, "-m", "spades_tpu_torch.pipeline.main", "-1", paths[0],
-           "-2", paths[1], "-k", str(gap_state["k"]), "--only-assembler", "-o", out]
+           "-2", paths[1], "-k", str(gap_state["k"]), "--careful", "-o", out]
     if dev.type == "cpu":
         cmd += ["--device", "cpu"]
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -918,13 +1232,20 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
     wall_s = time.perf_counter() - t0
     check(proc.returncode == 0,
           f"the CLI exited with {proc.returncode}: {proc.stderr[-2000:]}")
+    n = gap_state["r1"].shape[0]
+    for mate, want in ((1, gap_state["fixed"][:n]), (2, gap_state["fixed"][n:])):
+        got = [r.seq for r in read_fastx(os.path.join(out, "corrected", f"lib1_{mate}.cor.fasta"))]
+        check(got == want, f"CLI: its corrected reads of mate {mate} differ from the "
+                           f"library call's")
     for name in ("contigs.fasta", "scaffolds.fasta"):
         check(read_bytes(os.path.join(out, name))
               == read_bytes(os.path.join(gap_state["out"], name)),
               f"CLI: {name} differs from the library call's")
     with open(os.path.join(out, "spades.log")) as fh:
-        found = re.findall(r"kernel launches: canonical_windows=(\d+)", fh.read())
+        log_text = fh.read()
+    found = re.findall(r"kernel launches: canonical_windows=(\d+)", log_text)
     check(len(found) == 1, "CLI: its log does not say how often it launched the kernel")
+    check("Mismatch Correction" in log_text, "CLI: careful mode did not run")
     launches = int(found[0])
     check(launches > 0 or dev.type == "cpu", "CLI: the canonical-windows kernel was not launched")
     with open(os.path.join(out, "run_spades.yaml")) as fh:
@@ -937,7 +1258,7 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
 
 
 # ---------------------------------------------------------------------------
-# 8. the shapes the paths gave the kernel that phase 2 did not hold
+# 9. the shapes the paths gave the kernel that phase 2 did not hold
 # ---------------------------------------------------------------------------
 
 def phase_observed_shapes(dev, observed, held, max_groups: int = 40) -> dict:
@@ -988,11 +1309,12 @@ def phase_observed_shapes(dev, observed, held, max_groups: int = 40) -> dict:
 
 
 def kernels_line(kernel_rec: dict, observed_rec: dict, launches: dict) -> dict:
-    """The per-kernel summary: launches by driven path, times at the largest
-    main-path shape (the last one without the strand plane), the largest
-    error over every shape held against the plain version."""
+    """The per-kernel summary: launches by driven path, times at the k=56
+    ReadStore chunk (else the last main-path shape without the strand plane),
+    the largest error over every shape held against the plain version."""
     shapes = kernel_rec["shapes"]
-    top = [s for s in shapes if not s["strand"]][-1]
+    top = next((s for s in shapes if s["shape"] == "ReadStore chunk k=56"),
+               [s for s in shapes if not s["strand"]][-1])
     return {"kernels": [{
         "name": "canonical_windows",
         "route": "cuda",
@@ -1036,8 +1358,13 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         del state["store"], state["graph"]
-        rec, asm_launches, shapes = phase_assembly(dev, workdir, state, seed,
+        rec, ec_launches, shapes, corrected = phase_error_correction(dev, state, seed)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        rec, asm_launches, shapes = phase_assembly(dev, workdir, state, seed, corrected,
                                                    total_tolerance=total_tolerance)
+        del corrected
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
@@ -1057,6 +1384,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     seen["total_s"] = time.perf_counter() - t0
     emit(seen)
     return kernels_line(kern, seen, {"construction": main_launches, "mapping": map_launches,
+                                     "error_correction": ec_launches,
                                      "assembly": asm_launches, "gap_closing": gap_launches,
                                      "cli": cli_launches})
 

@@ -39,6 +39,11 @@ def decode(codes: np.ndarray) -> str:
     return _DEC_LUT[np.asarray(codes, dtype=np.uint8)].tobytes().decode()
 
 
+def decode_codes(codes: np.ndarray) -> np.ndarray:
+    """uint8 codes (any shape) -> the uint8 ASCII letters of `decode`."""
+    return _DEC_LUT[np.asarray(codes, dtype=np.uint8)]
+
+
 def complement_codes(codes: np.ndarray) -> np.ndarray:
     c = np.asarray(codes)
     return np.where(c >= NCODE, np.uint8(NCODE), (3 - c)).astype(np.uint8)

@@ -125,12 +125,17 @@ class ReadBatch:
         return cls(codes=codes, lengths=lengths, n_mask=n_mask, n_seqs=n_seqs)
 
     def sequences(self) -> list[str]:
-        out = []
-        for i in range(self.num_reads):
-            n = int(self.lengths[i])
-            c = self.codes[i, :n].astype(np.uint8).copy()
-            c[self.n_mask[i, :n]] = dna.NCODE
-            out.append(dna.decode(c))
+        """Every row as a string, N where flagged; rows of one length are
+        decoded in one numpy step."""
+        chars = dna.decode_codes(np.where(self.n_mask, np.uint8(dna.NCODE), self.codes))
+        out: list[str] = [""] * self.num_reads
+        for n in np.unique(self.lengths).tolist():
+            rows = np.flatnonzero(self.lengths == n)
+            if n == 0:
+                continue
+            block = np.ascontiguousarray(chars[rows, :n]).view(f"S{n}").ravel()
+            for r, text in zip(rows.tolist(), block.astype(f"U{n}").tolist()):
+                out[r] = text
         return out
 
 

@@ -2,8 +2,9 @@
 
 The device path is PyTorch/CUDA; the host runtime around it — the read
 loader (fastx.cpp), the sorted-run merger (merge.cpp), the graph
-construction engine (graph.cpp) and the simplification engines (simplify.cpp,
-bulge.cpp) — is native C++, built on first use with
+construction engine (graph.cpp), the simplification engines (simplify.cpp,
+bulge.cpp) and the union-find of read error correction (hammer.cpp) — is
+native C++, built on first use with
 `make -C spades_tpu_torch/native` into `libstbr.so` beside the sources.
 Every caller must handle `None` from `lib()` and fall back to numpy.  The
 loader, merger and construction fallbacks give identical results; the numpy
@@ -131,6 +132,8 @@ def lib():
         l.stbr_read_fastx.argtypes = [ctypes.c_char_p]
         l.stbr_free_reads.restype = None
         l.stbr_free_reads.argtypes = [ctypes.POINTER(_StbrReads)]
+        l.stbr_dsu_union_pairs.restype = None
+        l.stbr_dsu_union_pairs.argtypes = [p64, p64, p64, p64, ctypes.c_int64]
         l.stbr_merge_runs.restype = ctypes.c_int64
         l.stbr_merge_runs.argtypes = [
             pu32, p64, ctypes.POINTER(ctypes.c_uint64),
@@ -308,6 +311,25 @@ def condense_native(
         )
     finally:
         l.stbr_free_graph(gp)
+
+
+def dsu_union_pairs_native(parent: np.ndarray, size: np.ndarray, a: np.ndarray,
+                           b: np.ndarray) -> bool:
+    """`union(a[i], b[i])` in order, path halving and union by size, on the
+    int64 arrays `parent` and `size` in place (hammer/clustering.py's DSU).
+    Returns False, touching nothing, when the native library is
+    unavailable."""
+    l = lib()
+    if l is None:
+        return False
+    assert parent.dtype == size.dtype == np.int64 and parent.flags.c_contiguous \
+        and size.flags.c_contiguous
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    b = np.ascontiguousarray(b, dtype=np.int64)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    l.stbr_dsu_union_pairs(parent.ctypes.data_as(p64), size.ctypes.data_as(p64),
+                           a.ctypes.data_as(p64), b.ctypes.data_as(p64), len(a))
+    return True
 
 
 def merge_runs_native(words: np.ndarray, counts: np.ndarray, run_off: np.ndarray):

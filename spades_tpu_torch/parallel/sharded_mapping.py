@@ -21,6 +21,7 @@ here, and every lookup answers the same.
 """
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
@@ -30,7 +31,10 @@ from .. import resolve_device
 from ..core import kmers as K
 from ..ops.cuda_kernels import canonical_window_keys
 
+log = logging.getLogger("spades_tpu_torch.sharded_mapping")
+
 MISS = 2 ** 30          # edge and start of a window that hit nothing
+VOTE_SUBCHUNK = 65536   # reads a sub-slice of `position_votes_sharded` maps at once
 
 
 def _rows_less(a: torch.Tensor, b: torch.Tensor):
@@ -205,6 +209,101 @@ def pair_info_sharded(g, edge1, start1, edge2, start2, insert_size: float):
     o2_end = np.asarray(g.e_len)[e2] - start2[ok]
     d = np.round(o1 + insert_size - o2_end).astype(np.int64)
     return e1, e2, d
+
+
+def _votes_shard_body(pc, pn, lengths, index_keys, index_edge, index_off,
+                      index_strand, conj, e_len, e_off, k: int, L: int, pool_len: int):
+    """Map a packed read batch, then scatter each mapped read's bases onto
+    the pool positions they cover: (pool_len, 4) int32 base votes.  The
+    counterpart of the JAX package's `_votes_shard_body` on one device (the
+    vote merge across devices waits for the multi-GPU slice); integer adds,
+    so the scatter is exact in any order."""
+    from ..ops.count import unpack_batch_device
+
+    edge, start, _votes = _map_shard_body(pc, pn, lengths, index_keys, index_edge,
+                                          index_off, index_strand, conj, e_len, k=k, L=L)
+    codes, n_mask = unpack_batch_device(pc, pn, L)
+    return _scatter_votes(codes, n_mask, lengths, edge, start, e_len, e_off, pool_len)
+
+
+def _scatter_votes(codes, n_mask, lengths, edge, start, e_len, e_off, pool_len: int):
+    dev = codes.device
+    L = codes.shape[1]
+    pos = start[:, None] + torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    safe_e = edge.clamp(0, max(e_len.shape[0] - 1, 0)).to(torch.int64)
+    inside = (pos >= 0) & (pos < e_len[safe_e][:, None]) & (edge >= 0)[:, None]
+    valid_base = (codes < 4) & ~n_mask & (
+        torch.arange(L, device=dev)[None, :] < lengths[:, None])
+    ok = inside & valid_base
+    # one dump row past the pool takes every vote that does not count
+    flat = torch.where(ok, e_off[safe_e][:, None] + pos, pool_len).to(torch.int64)
+    votes = torch.zeros((pool_len + 1) * 4, dtype=torch.int32, device=dev)
+    votes.scatter_add_(0, (flat * 4 + codes.to(torch.int64)).reshape(-1),
+                       ok.reshape(-1).to(torch.int32))
+    return votes.reshape(pool_len + 1, 4)[:pool_len]
+
+
+def votes_plain(codes: np.ndarray, n_mask: np.ndarray, lengths: np.ndarray,
+                edge: np.ndarray, start: np.ndarray, e_len: np.ndarray,
+                e_off: np.ndarray, pool_len: int) -> np.ndarray:
+    """Plain numpy version of the vote scatter of `_votes_shard_body`, from
+    each read's mapping (edge, start): `np.add.at` of every base of a mapped
+    read that lies inside its edge."""
+    R, L = codes.shape
+    pos = start[:, None].astype(np.int64) + np.arange(L)[None, :]
+    safe_e = np.clip(edge, 0, max(len(e_len) - 1, 0))
+    ok = ((pos >= 0) & (pos < e_len[safe_e][:, None]) & (edge >= 0)[:, None]
+          & (codes < 4) & ~n_mask & (np.arange(L)[None, :] < lengths[:, None]))
+    votes = np.zeros((pool_len, 4), np.int32)
+    np.add.at(votes, ((e_off[safe_e][:, None] + pos)[ok], codes[ok]), 1)
+    return votes
+
+
+def position_votes_sharded(index, g, batch=None, store=None, prep=None,
+                           device=None) -> np.ndarray:
+    """Per-position base votes on the device: (len(seq_pool), 4) int32.
+
+    Same contract as `alignment.mismatch.position_votes`.  Accepts a single
+    ReadBatch (`batch`) or a run-wide packed ReadStore (`store`); `prep`
+    reuses a `prepare_index_device` / `build_index_device` upload.  Reads go
+    in sub-slices of `VOTE_SUBCHUNK` rows, as the JAX package takes them,
+    and the tally stays on the device until the end.  On a CUDA
+    out-of-memory error the sub-slice halves (down to 8,192) and the chunk
+    is retried; any other error escapes.  A chunk narrower than k holds no
+    window, so its reads cast no vote (the JAX package raises there)."""
+    dev = prep[0].device if prep is not None and device is None else resolve_device(device)
+    pool_len = int(len(g.seq_pool))
+    if prep is None:
+        prep = prepare_index_device(index, g, dev)
+    e_off = torch.from_numpy(np.ascontiguousarray(g.e_off, np.int32)).to(dev)
+    if store is not None:
+        chunks = [(ch.device(dev), ch.L) for ch in store.chunks]
+    else:
+        pc, pn, lengths, L = batch.packed()
+        chunks = [(tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in (pc, pn, lengths)), L)]
+    votes = torch.zeros((pool_len, 4), dtype=torch.int32, device=dev)
+    for (pc, pn, lengths), L in chunks:
+        if L < index.k:
+            continue
+        step = VOTE_SUBCHUNK
+        while True:
+            try:
+                part = torch.zeros_like(votes)
+                for a in range(0, pc.shape[0], step):
+                    part += _votes_shard_body(pc[a : a + step], pn[a : a + step],
+                                              lengths[a : a + step], *prep, e_off,
+                                              k=index.k, L=L, pool_len=pool_len)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if step <= 8192:
+                    raise
+                log.info("vote sub-slice %d out of device memory, retrying at %d",
+                         step, step // 2)
+                part = None
+                step //= 2
+                torch.cuda.empty_cache()
+        votes += part
+    return votes.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

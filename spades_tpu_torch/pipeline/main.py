@@ -9,12 +9,15 @@ dirs, spades.log, params.txt).  The whole pipeline runs in-process against
 the device (`--device`, the CUDA card unless `--device cpu` is given), and
 per-K state is checkpointed through the stage manager.
 
-    python -m spades_tpu_torch.pipeline.main -1 r1.fq -2 r2.fq --only-assembler -o out
+    python -m spades_tpu_torch.pipeline.main -1 r1.fq -2 r2.fq -o out
 
-Ported so far: isolate and multicell assembly of short reads without read
-error correction (`--only-assembler`), with or without repeat resolution.
-Every option whose code is not ported yet raises `NotImplementedError`
-naming the ROADMAP item that ports it; nothing is skipped silently.
+Ported so far: isolate and multicell assembly of short reads, with read
+error correction (BayesHammer by default, IonHammer under `--iontorrent`;
+`--only-assembler` skips it, `--only-error-correction` stops after it), with
+or without repeat resolution, and careful mode (`--careful`,
+`--mismatch-correction`).  Every option whose code is not ported yet raises
+`NotImplementedError` naming the ROADMAP item that ports it; nothing is
+skipped silently.
 """
 from __future__ import annotations
 
@@ -27,11 +30,13 @@ import numpy as np
 
 from .. import __version__, resolve_device
 
-# SPAdes' bundled E. coli 1K test set, in a SPAdes source tree at
-# `src/projects/spades/test_dataset`; the tree is `SPADES_SOURCE_DIR`, else
-# the working directory
-TEST_DATASET_DIR = os.path.join(
-    os.environ.get("SPADES_SOURCE_DIR", ""), "src", "projects", "spades", "test_dataset")
+
+def test_dataset_dir() -> str:
+    """SPAdes' bundled E. coli 1K test set (`--test`), in a SPAdes source
+    tree at `src/projects/spades/test_dataset`; the tree is
+    `SPADES_SOURCE_DIR`, else the working directory."""
+    return os.path.join(os.environ.get("SPADES_SOURCE_DIR", ""), "src", "projects", "spades",
+                        "test_dataset")
 
 # numbered library options (options_parser.py:198-320: --pe<#>-1 .. --s<#>),
 # up to 9 libraries per kind with per-library orientation suffixes
@@ -109,7 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     inp.add_argument("--assembly-graph", dest="assembly_graph", default=None,
                      help="start from an existing assembly graph (GFA; not ported yet)")
     inp.add_argument("--custom-hmms", action="append", default=[], help="profile HMM file(s) for bio/corona modes (not ported yet)")
-    inp.add_argument("--iontorrent", action="store_true", help="IonTorrent error correction (not ported yet)")
+    inp.add_argument("--iontorrent", action="store_true", help="IonTorrent data: homopolymer-space error correction (ionhammer)")
     inp.add_argument("--test", action="store_true", help="run on SPAdes' bundled E. coli 1K dataset and check the result")
 
     out = p.add_argument_group("output")
@@ -118,7 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     modes = p.add_argument_group("modes")
     for m in ("meta", "rna", "plasmid", "isolate", "sc", "metaviral", "rnaviral", "corona", "bio", "sewage", "metaplasmid"):
         modes.add_argument(f"--{m}", action="store_true", help=f"{m} mode")
-    modes.add_argument("--careful", action="store_true", help="careful mode (mismatch correction; not ported yet)")
+    modes.add_argument("--careful", action="store_true", help="careful mode (mismatch correction)")
     modes.add_argument("--ss", choices=("fr", "rf"), default=None,
                        help="strand-specific RNA protocol orientation (rna mode)")
     modes.add_argument("--series-analysis", default=None, metavar="YAML",
@@ -167,7 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
     adv.add_argument("--save-gp", action="store_true",
                      help="save the full graph pack at every stage (checkpoints=all)")
     adv.add_argument("--mismatch-correction", dest="mismatch_correction", action="store_true",
-                     help="run post-assembly mismatch correction (implied by --careful; not ported yet)")
+                     help="run post-assembly mismatch correction (implied by --careful)")
     adv.add_argument("--read-cov-threshold", type=float, default=None, metavar="C",
                      help="drop reads whose median k-mer coverage is below C (not ported yet)")
     adv.add_argument("--read-buffer-size", type=int, default=None, help="accepted for parity (reads are streamed in device-sized batches regardless)")
@@ -195,12 +200,6 @@ def refuse_unported(args, mode: str) -> None:
     checked again by `run_assembly`)."""
     from .run import _refuse_unported
 
-    if args.only_error_correction or args.iontorrent or (
-            not args.only_assembler and mode not in ("rna", "corona", "sewage")):
-        raise NotImplementedError(
-            "read error correction (BayesHammer / IonHammer; the default without "
-            "--only-assembler, --only-error-correction, --iontorrent) is not ported "
-            "yet (ROADMAP A12); pass --only-assembler")
     if args.read_cov_threshold:
         raise NotImplementedError(
             "--read-cov-threshold (tools/read_filter.py) is not ported yet (ROADMAP A14)")
@@ -217,10 +216,7 @@ def refuse_unported(args, mode: str) -> None:
     if args.assembly_graph:
         raise NotImplementedError("--assembly-graph is not ported yet (ROADMAP A13)")
     _refuse_unported(
-        mode=mode,
-        mismatch_correction=(args.careful or args.mismatch_correction)
-        and args.stop_after != "as",
-        long_reads=None, assembly_graph=None, series_analysis=args.series_analysis,
+        mode=mode, long_reads=None, assembly_graph=None, series_analysis=args.series_analysis,
         ss=args.ss, hmm_profiles=None,
     )
 
@@ -251,14 +247,21 @@ def _start_profiler(device):
     return prof
 
 
+def _log_launches(log) -> None:
+    """Log how often this run launched each hand kernel (none on the CPU)."""
+    from ..ops import cuda_kernels as CK
+
+    log.info("kernel launches: canonical_windows=%d", CK.canonical_window_keys.launches)
+
+
 def main(argv=None) -> int:
     raw_argv = list(argv if argv is not None else sys.argv[1:])
     clean_argv, numbered = extract_numbered_libs(raw_argv)
     args = build_parser().parse_args(clean_argv)
 
     if args.test:
-        args.pe1 = [os.path.join(TEST_DATASET_DIR, "ecoli_1K_1.fq.gz")]
-        args.pe2 = [os.path.join(TEST_DATASET_DIR, "ecoli_1K_2.fq.gz")]
+        args.pe1 = [os.path.join(test_dataset_dir(), "ecoli_1K_1.fq.gz")]
+        args.pe2 = [os.path.join(test_dataset_dir(), "ecoli_1K_2.fq.gz")]
         if not args.output_dir:
             args.output_dir = "spades_test"
     if not args.output_dir:
@@ -383,6 +386,67 @@ def main(argv=None) -> int:
         log.error("no reads parsed")
         return 64
 
+    # --- error correction (BayesHammer stage; error_correction_stage.py) -
+    # Runs by default as in SPAdes; skipped for --only-assembler and for
+    # modes that disable it (rna/corona run without hammer upstream).
+    if not args.only_assembler and mode not in ("rna", "corona", "sewage"):
+        from ..hammer import HammerConfig, correct_reads
+        from ..hammer.hammer import HammerStats
+        from ..io.fastx import write_fasta
+
+        flat: list[str] = []
+        flat_quals: list[str] = []
+        spans = []  # (lib, n_left, n_right) in order
+        for lib in dataset.libraries:
+            if lib.is_paired:
+                spans.append((lib, len(lib.left), len(lib.right)))
+                flat += lib.left + lib.right
+                flat_quals += (lib.left_quals or [""] * len(lib.left))
+                flat_quals += (lib.right_quals or [""] * len(lib.right))
+            elif lib.type == "single":
+                spans.append((lib, len(lib.left), 0))
+                flat += lib.left
+                flat_quals += (lib.left_quals or [""] * len(lib.left))
+        if args.iontorrent:
+            from ..hammer.ionhammer import correct_ion_reads
+
+            corrected, changed = correct_ion_reads(flat)
+            st = HammerStats(reads_total=len(flat), bases_changed=changed,
+                             reads_changed=sum(a != b for a, b in zip(corrected, flat)))
+        else:
+            corrected, st = correct_reads(flat, HammerConfig(), quals=flat_quals,
+                                          device=device)
+        log.info(
+            "error correction: %d/%d reads changed, %d bases",
+            st.reads_changed, st.reads_total, st.bases_changed,
+        )
+        off = 0
+        for lib, nl, nr in spans:
+            lib.left = corrected[off : off + nl]
+            lib.right = corrected[off + nl : off + nl + nr]
+            off += nl + nr
+        reads = dataset.all_short_reads()
+        paired_libs = dataset.paired()
+        cdir = os.path.join(args.output_dir, "corrected")
+        os.makedirs(cdir, exist_ok=True)
+        for li, lib in enumerate(dataset.paired()):
+            write_fasta(os.path.join(cdir, f"lib{li + 1}_1.cor.fasta"),
+                        [(f"read{i+1}/1", r) for i, r in enumerate(lib.left)])
+            write_fasta(os.path.join(cdir, f"lib{li + 1}_2.cor.fasta"),
+                        [(f"read{i+1}/2", r) for i, r in enumerate(lib.right)])
+        singles = dataset.singles()
+        if singles:
+            write_fasta(os.path.join(cdir, "unpaired.cor.fasta"),
+                        [(f"read{i+1}", r) for i, r in enumerate(singles)])
+        if args.only_error_correction or args.stop_after == "ec":
+            _log_launches(log)
+            log.info("======= spades_tpu_torch finished (error correction only). "
+                     "Results in %s", cdir)
+            return 0
+    elif args.only_error_correction:
+        log.error("--only-error-correction with --only-assembler or a no-EC mode")
+        return 64
+
     # --- k selection ----------------------------------------------------
     rl = int(np.median([len(r) for r in reads]))
     if args.k_list == "auto":
@@ -483,10 +547,7 @@ def main(argv=None) -> int:
         os.makedirs(pdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(pdir, "trace.json"))
         log.info("torch profiler trace -> %s", pdir)
-    from ..ops import cuda_kernels as CK
-
-    # how often this run launched each hand kernel (none on the CPU)
-    log.info("kernel launches: canonical_windows=%d", CK.canonical_window_keys.launches)
+    _log_launches(log)
     log.info("======= spades_tpu_torch finished. Results in %s", args.output_dir)
     return 0
 

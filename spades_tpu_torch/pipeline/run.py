@@ -5,8 +5,9 @@ The outer loop mirrors `spades_pipeline/stages/spades_stage.py:282-396`
 copy) on top of the inner stage manager (pipeline/stages.py).
 
 Ported so far: `mode="multicell"` and `mode="isolate"` (the same stage
-list: no stage branches on isolate), with repeat resolution on the last K
-(PairInfoCount, DistanceEstimation, RepeatResolution) unless `disable_rr`.
+list: no stage branches on isolate), with mismatch correction on the last
+K under `careful` / `mismatch_correction`, and repeat resolution on the last
+K (PairInfoCount, DistanceEstimation, RepeatResolution) unless `disable_rr`.
 Every argument that asks for a stage not ported yet raises
 `NotImplementedError`; nothing is skipped.
 """
@@ -27,6 +28,7 @@ from .spades_stages import (
     DistanceEstimation,
     GapClosing,
     GenomicInfoFiller,
+    MismatchCorrection,
     PairInfoCount,
     RawSimplification,
     RepeatResolution,
@@ -66,8 +68,8 @@ def mode_simplify_config(mode: str, read_length: int) -> SimplifyConfig:
     return cfg
 
 
-def _refuse_unported(*, mode, mismatch_correction, long_reads,
-                     assembly_graph, series_analysis, ss, hmm_profiles) -> None:
+def _refuse_unported(*, mode, long_reads, assembly_graph, series_analysis, ss,
+                     hmm_profiles) -> None:
     """Raise for every argument whose stages are not ported yet, naming the
     ROADMAP item that ports them."""
     if mode not in ("multicell", "isolate"):
@@ -75,9 +77,6 @@ def _refuse_unported(*, mode, mismatch_correction, long_reads,
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet (ROADMAP A13); "
             "only 'multicell' and 'isolate' are")
-    if mismatch_correction:
-        raise NotImplementedError(
-            "careful mode / mismatch correction is not ported yet (ROADMAP A11)")
     for name, value in (("long_reads", long_reads), ("assembly_graph", assembly_graph),
                         ("series_analysis", series_analysis), ("ss", ss),
                         ("hmm_profiles", hmm_profiles)):
@@ -118,8 +117,7 @@ def run_assembly(
     if mismatch_correction is None:
         mismatch_correction = careful
     _refuse_unported(
-        mode=mode, mismatch_correction=mismatch_correction,
-        long_reads=long_reads, assembly_graph=assembly_graph,
+        mode=mode, long_reads=long_reads, assembly_graph=assembly_graph,
         series_analysis=series_analysis, ss=ss, hmm_profiles=hmm_profiles,
     )
     if not k_list:
@@ -234,6 +232,11 @@ def run_assembly(
             )),
             GapClosing("late"),
         )
+        if is_last and mismatch_correction:
+            # careful mode (or --mismatch-correction) polishes edge
+            # sequences before output (pipeline.cpp gates MismatchCorrection
+            # on cfg.correct_mismatches)
+            mgr.add(MismatchCorrection())
         if is_last and not disable_rr:
             # repeat resolution runs on the main (last) iteration only
             # (pipeline.cpp: RepeatResolution gated on main_iteration,

@@ -3,8 +3,8 @@
 Mirrors SPAdes' `src/projects/spades/pipeline.cpp:263-298` (stage list by
 mode).  Ported so far: the stages of a multicell / isolate assembly,
 Construction, GenomicInfoFiller, RawSimplification, GapClosing,
-Simplification, PairInfoCount, DistanceEstimation, RepeatResolution and
-ContigOutput.  Mismatch correction (careful mode) and the mode-specific
+Simplification, MismatchCorrection (careful mode), PairInfoCount,
+DistanceEstimation, RepeatResolution and ContigOutput.  The mode-specific
 stages (hybrid, RNA, plasmid, meta's second phase, domains) are not here yet.
 """
 from __future__ import annotations
@@ -35,6 +35,8 @@ GAP_CLOSER_STATS: list[tuple[int, str, dict]] = []
 # index entries and times; DistanceEstimation's clustered, improved and
 # scaffolding index sizes; RepeatResolution's paths and scaffolds
 RR_STATS: list[tuple[int, str, dict]] = []
+# (k, bases fixed) trail of every MismatchCorrection run
+MISMATCH_STATS: list[tuple[int, int]] = []
 
 
 class Construction(AssemblyStage):
@@ -219,6 +221,30 @@ def _assembly_stats(contigs) -> str:
             break
     return (f"{len(lens)} contigs, total {total} bp, longest {lens[0]} bp, "
             f"N50 {n50} bp")
+
+
+class MismatchCorrection(AssemblyStage):
+    """Careful-mode edge-sequence polishing (mismatch_correction.cpp:119-280)."""
+
+    name = "Mismatch Correction"
+    id = "mismatch_correction"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if ctx.graph is None or ctx.graph.num_edges == 0 \
+                or not (ctx.reads or ctx.read_store):
+            return
+        from ..alignment.mismatch import correct_mismatches
+
+        if ctx.read_store is not None:
+            n = correct_mismatches(ctx.graph, store=ctx.read_store,
+                                   engine=ctx.mapping_engine())
+        else:
+            n = correct_mismatches(ctx.graph, ctx.reads, device=ctx.device)
+        if n:
+            # sequences rewritten in place: cached edge index is stale
+            ctx.invalidate_mapping()
+        MISMATCH_STATS.append((ctx.k, n))
+        log.info("mismatch correction: %d bases fixed", n)
 
 
 class ContigOutput(AssemblyStage):

@@ -19,7 +19,10 @@ H100_INT32_OPS_PER_S = 67e12
 # ragged, k..L).  The index tiers are the row plans of `build_index_device`
 # (2^25 bases a step), the rest are slices of 150-base reads.  A 21,33,55
 # ladder counts (k+1)-mers at 22, 34 and 56 and maps, prefilters and indexes
-# at each k; `gbuilder` and the mapping pass on its graph run at k=55.
+# at each k; `gbuilder` and the mapping pass on its graph run at k=55.  Read
+# error correction counts 21-mers in batches of 65,536 reads and takes its
+# window maps in batches of 8,192 reads with the strand plane (150-base reads
+# pad to 256).
 def _ladder_shapes(k: int):
     return (
         (f"index tier 8192 k={k}, strand", 4096, 8192, k, True, 8192),
@@ -38,6 +41,8 @@ MAIN_SHAPES = (
     ("ReadStore chunk k=22", 262144, 152, 22, False, 150),
     ("ReadStore chunk k=34", 262144, 152, 34, False, 150),
     ("ReadStore chunk k=56", 262144, 152, 56, False, 150),
+    ("hammer count k=21", 65536, 256, 21, False, 150),
+    ("hammer maps k=21, strand", 8192, 256, 21, True, 150),
 )
 
 

@@ -10,8 +10,9 @@ import numpy as np
 
 
 def _sample_pairs(G: int, cov: int, rl: int, err: float, seed: int,
-                  insert_mean: int, insert_sd: int):
-    """Genome, FR pairs, and each pair's insert start and size."""
+                  insert_mean: int, insert_sd: int, truth: bool = False):
+    """Genome, FR pairs, each pair's insert start and size, and (with
+    `truth`) the pairs as they were before the substitutions, else None."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, G).astype(np.uint8)
     elems = [rng.integers(0, 4, 500).astype(np.uint8) for _ in range(3)]
@@ -28,31 +29,37 @@ def _sample_pairs(G: int, cov: int, rl: int, err: float, seed: int,
     # FR: read2 is the reverse complement of the insert's right end
     r2f = genome[(starts + isize - rl)[:, None] + np.arange(rl)]
     r2 = np.ascontiguousarray((3 - r2f)[:, ::-1])
+    clean = (r1.copy(), r2.copy()) if truth else None
     for r in (r1, r2):
         em = rng.random(r.shape) < err
         r[em] = (r[em] + rng.integers(1, 4, int(em.sum()))) & 3
-    return genome, r1, r2, starts, isize
+    return genome, r1, r2, starts, isize, clean
 
 
 def make_e2e_dataset(G: int, cov: int, rl: int, err: float, seed: int = 42,
-                     insert_mean: int = 400, insert_sd: int = 30):
+                     insert_mean: int = 400, insert_sd: int = 30, truth: bool = False):
     """G-nt random genome with planted dispersed repeats (3 x 500 bp x 30
     copies + 1 x 2 kb x 10 copies), FR paired reads at the given coverage
-    with substitution errors.  Returns (genome, r1, r2) as uint8 codes."""
-    return _sample_pairs(G, cov, rl, err, seed, insert_mean, insert_sd)[:3]
+    with substitution errors.  Returns (genome, r1, r2) as uint8 codes; with
+    `truth`, (genome, r1, r2, clean1, clean2), the reads before their
+    substitutions (the same draws: the seed gives the same reads either way)."""
+    genome, r1, r2, _s, _i, clean = _sample_pairs(G, cov, rl, err, seed, insert_mean,
+                                                  insert_sd, truth)
+    return (genome, r1, r2, *clean) if truth else (genome, r1, r2)
 
 
 def make_gapped_dataset(G: int, cov: int, rl: int, err: float, seed: int, n_gaps: int,
                         min_overlap: int = 10, max_overlap: int = 45,
-                        insert_mean: int = 400, insert_sd: int = 30):
+                        insert_mean: int = 400, insert_sd: int = 30, truth: bool = False):
     """The dataset of `make_e2e_dataset` with coverage gaps: at `n_gaps`
     evenly spread positions every pair with a read that reaches across is
     dropped, so the reads left of a position and those right of it share only
     `min_overlap`..`max_overlap` bases.  Below k that breaks the graph into
     two tips which pairs still span: what the gap closer is for.  Returns
-    (genome, r1, r2, gaps) with gaps as (position, overlap) rows."""
-    genome, r1, r2, starts, isize = _sample_pairs(G, cov, rl, err, seed,
-                                                  insert_mean, insert_sd)
+    (genome, r1, r2, gaps) with gaps as (position, overlap) rows; with
+    `truth`, the kept pairs before their substitutions follow."""
+    genome, r1, r2, starts, isize, clean = _sample_pairs(G, cov, rl, err, seed,
+                                                         insert_mean, insert_sd, truth)
     rng = np.random.default_rng(seed + 1)
     pos = (np.arange(1, n_gaps + 1) * (G // (n_gaps + 1))).astype(np.int64)
     overlap = rng.integers(min_overlap, max_overlap + 1, n_gaps)
@@ -65,14 +72,29 @@ def make_gapped_dataset(G: int, cov: int, rl: int, err: float, seed: int, n_gaps
         return out
 
     keep = ~crosses(starts) & ~crosses(starts + isize - rl)
-    return genome, r1[keep], r2[keep], np.stack([pos, overlap], axis=1)
+    out = (genome, r1[keep], r2[keep], np.stack([pos, overlap], axis=1))
+    return out + (clean[0][keep], clean[1][keep]) if truth else out
 
 
-def write_fastq(path: str, reads: np.ndarray, mate: int) -> None:
-    """Write (n, rl) uint8 codes as FASTQ records `@p<i>/<mate>`, quality I."""
+def error_qualities(reads: np.ndarray, clean: np.ndarray, seed: int) -> np.ndarray:
+    """PHRED+33 qualities of (n, rl) reads as ASCII codes, drawn from `seed`:
+    uniform in Q20..40 where a base is right, in Q2..12 where it is a planted
+    substitution (where `reads` differs from `clean`)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(20, 41, reads.shape, dtype=np.uint8)
+    wrong = reads != clean
+    q[wrong] = rng.integers(2, 13, int(wrong.sum()), dtype=np.uint8)
+    return q + np.uint8(33)
+
+
+def write_fastq(path: str, reads: np.ndarray, mate: int,
+                quals: np.ndarray | None = None) -> None:
+    """Write (n, rl) uint8 codes as FASTQ records `@p<i>/<mate>`, with the
+    (n, rl) ASCII qualities `quals`, else quality I throughout."""
     acgt = np.frombuffer(b"ACGT", np.uint8)
     seqs = acgt[reads]
     qual = b"I" * reads.shape[1]
     with open(path, "wb") as fh:
         for i in range(seqs.shape[0]):
-            fh.write(b"@p%d/%d\n%s\n+\n%s\n" % (i, mate, seqs[i].tobytes(), qual))
+            q = qual if quals is None else quals[i].tobytes()
+            fh.write(b"@p%d/%d\n%s\n+\n%s\n" % (i, mate, seqs[i].tobytes(), q))

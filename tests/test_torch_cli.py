@@ -132,9 +132,9 @@ def test_yaml_emitter_quotes_what_yaml_would_misread():
 
 
 @pytest.mark.parametrize("extra, item", [
-    ([], "A12"),                                   # error correction is the default
-    (["--only-assembler", "--only-error-correction"], "A12"),
-    (["--only-assembler", "--iontorrent"], "A12"),
+    (["--sc"], "A13"),                             # error correction is the default
+    (["--only-error-correction", "--metaviral"], "A13"),
+    (["--iontorrent", "--bio"], "A13"),
     (["--only-assembler", "--read-cov-threshold", "3"], "A14"),
     (["--only-assembler", "--num-processes", "2"], "A15"),
     (["--only-assembler", "--pacbio", "lr.fq"], "A13"),
@@ -143,8 +143,8 @@ def test_yaml_emitter_quotes_what_yaml_would_misread():
     (["--only-assembler", "--fl-rna", "lr.fq"], "A13"),
     (["--only-assembler", "--custom-hmms", "p.hmm"], "A13"),
     (["--only-assembler", "--assembly-graph", "g.gfa"], "A13"),
-    (["--only-assembler", "--careful"], "A11"),
-    (["--only-assembler", "--mismatch-correction"], "A11"),
+    (["--careful", "--corona"], "A13"),
+    (["--mismatch-correction", "--metaplasmid"], "A13"),
     (["--only-assembler", "--meta"], "A13"),
     (["--only-assembler", "--rna", "--ss", "fr"], "A13"),
     (["--only-assembler", "--plasmid"], "A13"),
@@ -184,7 +184,7 @@ def test_profile_and_time_trace_are_written(fastq, tmp_path):
 
 
 def test_test_dataset_option(tmp_path):
-    if not os.path.exists(os.path.join(t_main.TEST_DATASET_DIR, "ecoli_1K_1.fq.gz")):
+    if not os.path.exists(os.path.join(t_main.test_dataset_dir(), "ecoli_1K_1.fq.gz")):
         pytest.skip("SPAdes' test dataset is not available")
     assert t_main.main(["--test", "--only-assembler", "--device", "cpu",
                         "-o", str(tmp_path / "t")]) == 0

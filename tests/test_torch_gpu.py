@@ -211,3 +211,43 @@ def test_run_assembly_cuda_matches_cpu(cuda, monkeypatch, tmp_path, k_list):
     for name in ("contigs.fasta", "scaffolds.fasta", "assembly_graph_with_scaffolds.gfa",
                  "assembly_graph.fastg", "contigs.paths"):
         assert filecmp.cmp(tmp_path / "cuda" / name, tmp_path / "cpu" / name, shallow=False)
+
+
+@pytest.mark.parametrize("with_quals", [False, True])
+def test_correct_reads_cuda_matches_cpu(cuda, monkeypatch, with_quals):
+    from spades_tpu_torch.hammer import hammer as H
+
+    monkeypatch.setenv("SPADES_HOST_COUNT_WINDOWS", "1")
+    reads, _genome = _reads(31, G=6000, n=2400, err=0.005)
+    rng = np.random.default_rng(32)
+    quals = ["".join(chr(33 + q) for q in rng.integers(2, 41, len(r))) for r in reads]
+    q = quals if with_quals else None
+    tm_g, tm_c = {}, {}
+    got = H.correct_reads(reads, H.HammerConfig(batch_size=512), quals=q, device=cuda,
+                          record=tm_g)
+    ref = H.correct_reads(reads, H.HammerConfig(batch_size=512), quals=q, device="cpu",
+                          record=tm_c)
+    assert got[0] == ref[0] and got[1] == ref[1] and got[1].bases_changed > 0
+    assert np.array_equal(tm_g["labels"], tm_c["labels"])
+    if with_quals:
+        assert tm_g["pos_log_err"].tobytes() == tm_c["pos_log_err"].tobytes()
+        assert len(tm_g["quality_ms"]) == len(tm_g["vote_ms"]) > 1
+
+
+def test_mismatch_votes_cuda_match_plain(cuda, monkeypatch):
+    from spades_tpu_torch.alignment.mapper import build_edge_index
+    from spades_tpu_torch.alignment.mismatch import correct_mismatches
+    from spades_tpu_torch.parallel import sharded_mapping as SM
+
+    reads, _genome = _reads(33, G=5000, n=1200)
+    g = construct_graph(reads, 21, min_count=2, device="cpu").graph
+    store = ReadStore.build(reads, chunk_reads=512)
+    index = build_edge_index(g)
+    monkeypatch.setattr(SM, "VOTE_SUBCHUNK", 256)
+    got = SM.position_votes_sharded(index, g, store=store, device=cuda)
+    ref = SM.position_votes_sharded(index, g, store=store, device="cpu")
+    assert np.array_equal(got, ref) and got.sum() > 0
+    g2 = construct_graph(reads, 21, min_count=2, device="cpu").graph
+    assert correct_mismatches(g, store=store, device=cuda) == \
+        correct_mismatches(g2, store=store, device="cpu")
+    assert np.array_equal(g.seq_pool, g2.seq_pool)

@@ -410,8 +410,8 @@ def test_assembler_matches(ladder_reads, lowered):
 @pytest.mark.parametrize("kw, item", [
     ({"mode": "sc"}, "A13"),                       # disable_rr defaults to False
     ({"mode": "meta"}, "A13"),                     # meta's two-step repeat resolution
-    ({"disable_rr": True, "careful": True}, "A11"),
-    ({"disable_rr": True, "mismatch_correction": True}, "A11"),
+    ({"disable_rr": True, "careful": True, "mode": "plasmid"}, "A13"),
+    ({"disable_rr": True, "mismatch_correction": True, "mode": "metaviral"}, "A13"),
     ({"disable_rr": True, "long_reads": ["ACGT" * 30]}, "A13"),
     ({"disable_rr": True, "assembly_graph": "graph.gfa"}, "A13"),
     ({"disable_rr": True, "series_analysis": "series.yaml"}, "A13"),
