@@ -48,8 +48,27 @@
    through `python -m spades_tpu_torch.pipeline.main -k 55 --careful` on the
    card, in a subprocess; its corrected reads, contigs and scaffolds must
    equal phase 7's card run.
-9. Every shape phases 3 to 8 gave the kernel that phase 2 did not hold yet,
-   against the plain version and timed.
+9. metaSPAdes at full width: a mock community of four random genomes (2.0,
+   1.5, 1.0 and 0.5 Mb at 60, 25, 12 and 6x, the two largest sharing a 5 kb
+   segment), raw 150 bp FR pairs, through `run_assembly([21, 33, 55],
+   mode="meta")`: both repeat-resolution passes (the second maps every read
+   again onto the first's device index), SecondPhaseSetup's trusted paths,
+   the stage times, the kernel's launches by caller and by stage, peak
+   device memory, and the contigs of 1 kb or more laid onto the genomes.
+10. Long reads: phase 7's gap set (its raw pairs) with 8x of noisy 10 kb
+   reads through `run_assembly([55], long_reads=)`, and through the CLI's
+   `--nanopore`, whose contigs must equal the library call's.
+11. The other modes at K = 55: a 100 kb chromosome at 40x with circular
+   plasmids of 5, 12 and 30 kb at 3, 5 and 8 times its depth in `plasmid`,
+   `metaplasmid`, `metaviral`, `sc` and `sewage` mode; and the gap set
+   from phase 7's GFA (`assembly_graph=`, then the CLI's
+   `--assembly-graph`).
+12. The card against the CPU: a worker process (`--cpu-worker`), started
+   after phase 7, makes the small runs of phases 9 to 11 (the community cut
+   to 300 kb, the hybrid run, every mode, the GFA start) on the CPU while
+   the card works; every file each wrote must equal the card's.
+13. Every shape phases 3 to 11 gave the kernel that phase 2 did not hold
+   yet, against the plain version and timed.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
@@ -637,7 +656,9 @@ def after_every_stage(hook):
 
     classes = (S.Construction, S.GenomicInfoFiller, S.RawSimplification, S.GapClosing,
                S.Simplification, S.MismatchCorrection, S.PairInfoCount,
-               S.DistanceEstimation, S.RepeatResolution, S.ContigOutput)
+               S.DistanceEstimation, S.RepeatResolution, S.SecondPhaseSetup,
+               S.HybridAligning, S.ChromosomeRemoval, S.MetaplasmidExtraction,
+               S.LoadGraph, S.ContigOutput)
     saved = [(cls, cls.run) for cls in classes]
 
     def hooked(run):
@@ -687,30 +708,60 @@ def assembly_stats(contigs) -> dict:
             "longest": lens[0] if lens else 0}
 
 
-def substitutions_against(seq: str, strands, err: float, anchor: int = 32,
-                          stride: int = 200):
-    """Fewest substitutions that lay `seq` onto one of `strands` (the genome
-    and its reverse complement), or None when no placement needs at most
-    max(2, err * len(seq)): the reads carry substitutions only, so a contig
-    that is right differs from the genome by a few surviving ones, and one
-    that joins two places differs in most bases past the joint."""
+def substitutions_against(seqs, genomes, anchor: int = 32, stride: int = 200) -> list:
+    """For each sequence, (the fewest substitutions that lay it onto one of
+    `genomes` (uint8 codes) on either strand, the indices of the genomes that
+    need that few), or (None, set()) where no anchor hits.  Anchors
+    (`anchor`-mers every `stride` bases, anchor <= 32) are looked up in a
+    sorted table of the genomes' k-mers, and each placement they give is
+    compared in full: reads that carry substitutions only leave a contig that
+    is right a few surviving ones, and one that joins two places differs in
+    most bases past the joint."""
     import numpy as np
 
-    if any(seq in g for g in strands):
-        return 0
-    a = np.frombuffer(seq.encode(), np.uint8)
-    best = None
-    for g in strands:
-        garr = np.frombuffer(g.encode(), np.uint8)
-        for off in range(0, len(seq) - anchor + 1, stride):
-            at = g.find(seq[off : off + anchor])
-            while at >= 0:
-                lo = at - off
-                if lo >= 0 and lo + len(seq) <= len(g):
-                    d = int((garr[lo : lo + len(seq)] != a).sum())
-                    best = d if best is None else min(best, d)
-                at = g.find(seq[off : off + anchor], at + 1)
-    return best if best is not None and best <= max(2, err * len(seq)) else None
+    def keys_of(codes):
+        n = len(codes) - anchor + 1
+        keys = np.zeros(max(n, 0), np.uint64)
+        for j in range(anchor):
+            keys = (keys << np.uint64(2)) | codes[j : j + n].astype(np.uint64)
+        return keys
+
+    strands, keys, where = [], [], []
+    for gi, g in enumerate(genomes):
+        for s in (g, (3 - g)[::-1].copy()):
+            kk = keys_of(s)
+            keys.append(kk)
+            where.append(np.stack([np.full(len(kk), len(strands)), np.arange(len(kk))], 1))
+            strands.append((gi, s))
+    keys = np.concatenate(keys)
+    where = np.concatenate(where)
+    order = np.argsort(keys, kind="stable")
+    keys, where = keys[order], where[order]
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    out = []
+    for seq in seqs:
+        c = lut[np.frombuffer(seq.encode(), np.uint8)]
+        tried, best, hits = set(), None, set()
+        for off in range(0, len(c) - anchor + 1, stride):
+            win = c[off : off + anchor]
+            if (win > 3).any():
+                continue
+            key = keys_of(win)[0]
+            lo, hi = np.searchsorted(keys, key), np.searchsorted(keys, key, side="right")
+            for si, pos in where[lo:hi]:
+                start = int(pos) - off
+                gi, s = strands[si]
+                if (si, start) in tried or start < 0 or start + len(c) > len(s):
+                    continue
+                tried.add((si, start))
+                d = int((s[start : start + len(c)] != c).sum())
+                if best is None or d < best:
+                    best, hits = d, {gi}
+                elif d == best:
+                    hits.add(gi)
+        out.append((best, hits))
+    return out
 
 
 def repeat_joints(seq: str, strands, flank: int = 60):
@@ -886,8 +937,9 @@ def phase_assembly(dev, workdir: str, state, seed: int, corrected, k_list=(21, 3
         genome that join inside repeats (`repeat_joints`)."""
         long_ = [(name, seq) for name, seq in records if len(seq) >= 1000]
         picks = rng.choice(len(long_), min(n_sample, len(long_)), replace=False)
-        subs = {long_[i][0]: substitutions_against(long_[i][1], (fwd, rev), 0.003)
-                for i in picks}
+        placed = substitutions_against([long_[i][1] for i in picks], [genome])
+        subs = {long_[i][0]: d if d is not None and d <= max(2, 0.003 * len(long_[i][1]))
+                else None for i, (d, _g) in zip(picks, placed)}
         joined = {long_[i][0]: repeat_joints(long_[i][1], (fwd, rev)) for i in picks
                   if subs[long_[i][0]] is None}
         wrong = [name for name, cuts in joined.items() if cuts is None]
@@ -1258,7 +1310,472 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
 
 
 # ---------------------------------------------------------------------------
-# 9. the shapes the paths gave the kernel that phase 2 did not hold
+# 9-12. metaSPAdes, long reads, the other modes, and their CPU runs
+# ---------------------------------------------------------------------------
+
+# the mock community of phase 9: four genomes (nt) at four depths, the two
+# largest sharing one 5 kb segment
+META_SIZES = (2_000_000, 1_500_000, 1_000_000, 500_000)
+META_COVERAGES = (60, 25, 12, 6)
+META_RR_IDS = ("pair_info_count_preliminary", "distance_estimation_preliminary",
+               "repeat_resolving_preliminary", "second_phase_setup", *RR_STAGE_IDS)
+MODES = ("plasmid", "metaplasmid", "metaviral", "sc", "sewage")
+# the card-against-CPU sets of phases 9-11 are small: below these device
+# thresholds their mapping would take the host path on both sides, so both
+# take the device path (the card's kernels, the CPU's plain versions)
+SMALL_SET_ENV = {"SPADES_DEVICE_MAP_READS": "1", "SPADES_DEVICE_INDEX_POOL": "1"}
+SMALL_SIZES = {"meta_total": 300_000, "gap_genome": 300_000, "gap_count": 30,
+               "chromosome": 100_000, "plasmids": [5_000, 12_000, 30_000]}
+GFA_NAME = "assembly_graph_with_scaffolds.gfa"
+
+
+@contextlib.contextmanager
+def environment(values: dict):
+    """Set environment variables for the duration of the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def hybrid_long_reads(genome, seed: int) -> list:
+    """Long reads of the gap set's genome: 8x of 10 +- 2 kb reads with 10 %
+    errors (4 % substitutions, 3 % insertions, 3 % deletions)."""
+    from spades_tpu_torch.tools import synthetic
+
+    return synthetic.sample_long_reads(genome, 8, 10_000, 2_000, 0.04, 0.03, 0.03, seed + 5)
+
+
+def small_runs(seed: int, sizes: dict, gfa=None):
+    """The runs that phases 9-11 make on the card and the CPU worker makes on
+    the CPU, from the seed alone: (name, k_list, reads, run_assembly keyword
+    arguments, extra) for the 300 kb community in meta mode, the gap set
+    with long reads, the gap set from `gfa` (phase 7's graph), and the
+    plasmid set in each of `MODES`."""
+    from spades_tpu_torch.tools import synthetic
+
+    rl = 150
+    scaled = [s * sizes["meta_total"] // sum(META_SIZES) for s in META_SIZES]
+    _g, r1, r2, _o = synthetic.make_community(scaled, META_COVERAGES, rl, 0.003, seed + 4)
+    lefts, rights = list(r1), list(r2)
+    yield ("meta", [21, 33, 55], lefts + rights,
+           dict(mode="meta", paired_libs=[(lefts, rights)], read_length=rl), {"genomes": scaled})
+    genome, r1, r2, _gaps = synthetic.make_gapped_dataset(
+        sizes["gap_genome"], 40, rl, 0.003, seed + 1, sizes["gap_count"])
+    lefts, rights = read_strings(r1), read_strings(r2)
+    longs = hybrid_long_reads(genome, seed)
+    yield ("hybrid", [55], lefts + rights,
+           dict(paired_libs=[(lefts, rights)], read_length=rl, long_reads=longs),
+           {"long_reads": len(longs), "long_read_nt": sum(map(len, longs))})
+    if gfa:
+        yield ("assembly_graph", [55], lefts + rights,
+               dict(paired_libs=[(lefts, rights)], read_length=rl, assembly_graph=gfa), {})
+    chrom, plas, r1, r2 = synthetic.make_plasmid_dataset(
+        sizes["chromosome"], 40, sizes["plasmids"], (3, 5, 8), rl, 0.003, seed + 6)
+    lefts, rights = list(r1), list(r2)
+    for mode in MODES:
+        yield (mode, [55], lefts + rights,
+               dict(mode=mode, paired_libs=[(lefts, rights)], read_length=rl),
+               {"chromosome": chrom, "plasmids": plas})
+
+
+def run_small(name, k_list, reads, kw, out, where) -> dict:
+    """One run of `small_runs` on `where`, with its trails."""
+    from spades_tpu_torch.pipeline import spades_stages as S
+    from spades_tpu_torch.pipeline import stages as ST
+    from spades_tpu_torch.pipeline.run import run_assembly
+
+    for trail in (ST.STAGE_TIMES, S.GAP_CLOSER_STATS, S.RR_STATS, S.MODE_STATS):
+        trail.clear()
+    t0 = time.perf_counter()
+    with environment(SMALL_SET_ENV):
+        res = run_assembly(reads, list(k_list), out, device=where, checkpoints="none", **kw)
+    sync(where)
+    return {"wall_s": time.perf_counter() - t0, "contigs": len(res.contigs),
+            "stages": [[k, s] for k, s, _ in ST.STAGE_TIMES],
+            "gap_closer": [[k, s, st["candidates"], st["closed"]]
+                           for k, s, st in S.GAP_CLOSER_STATS],
+            "rr": [[k, s, {kk: v for kk, v in st.items() if not kk.endswith("_s")
+                           and kk != "index_timings"}] for k, s, st in S.RR_STATS],
+            "modes": [[k, s, {kk: v for kk, v in st.items() if not kk.endswith("_s")}]
+                      for k, s, st in S.MODE_STATS],
+            "stage_times": [[k, s, t] for k, s, t in ST.STAGE_TIMES]}
+
+
+def cpu_worker(workdir: str, seed: int, sizes: dict, gfa) -> int:
+    """The CPU side of phases 9-11 (`--cpu-worker`): every run of
+    `small_runs` on the CPU into `workdir/<name>`, its trails into
+    `workdir/<name>.json`."""
+    import torch
+
+    torch.set_num_threads(4)          # the card's phases share the host
+    for name, k_list, reads, kw, _extra in small_runs(seed, sizes, gfa):
+        rec = run_small(name, k_list, reads, kw, os.path.join(workdir, name),
+                        torch.device("cpu"))
+        with open(os.path.join(workdir, f"{name}.json"), "w") as fh:
+            json.dump(rec, fh)
+    return 0
+
+
+def start_cpu_worker(workdir: str, seed: int, sizes: dict, gfa):
+    out = os.path.join(workdir, "cpu_side")
+    os.makedirs(out)
+    log = open(os.path.join(workdir, "cpu_worker.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-worker", out, "--seed", str(seed),
+         "--sizes", json.dumps(sizes), "--gfa", gfa or ""],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, out, log
+
+
+def files_under(root: str) -> set:
+    return {os.path.relpath(os.path.join(d, n), root)
+            for d, _dirs, names in os.walk(root) for n in names}
+
+
+def stage_launches_hook(per_stage: dict):
+    """A hook for `after_every_stage`: graph invariants after each stage,
+    and the kernel's launches the stage made."""
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    last = [CK.canonical_window_keys.launches]
+
+    def hook(stage, ctx):
+        g = ctx.graph
+        g.check_invariants()
+        graph_checks(f"k={ctx.k} {stage.id}", g)
+        n = CK.canonical_window_keys.launches
+        per_stage[f"k={ctx.k} {stage.id}"] = n - last[0]
+        last[0] = n
+    return hook
+
+
+def phase_meta(dev, workdir: str, seed: int, small_sizes: dict, sizes=META_SIZES,
+               coverages=META_COVERAGES, k_list=(21, 33, 55), rl: int = 150):
+    """metaSPAdes at full width: the mock community's raw reads through
+    `run_assembly(mode="meta")` (`--only-assembler`): counting at every K,
+    the gap closers, the preliminary PairInfoCount, DistanceEstimation and
+    RepeatResolution, SecondPhaseSetup (the preliminary contigs aligned as
+    trusted paths), then the main pass mapping every read again."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.pipeline import spades_stages as S
+    from spades_tpu_torch.pipeline import stages as ST
+    from spades_tpu_torch.pipeline.run import run_assembly
+    from spades_tpu_torch.tools import synthetic
+
+    wall = {}
+    t0 = time.perf_counter()
+    genomes, r1, r2, origin = synthetic.make_community(sizes, coverages, rl, 0.003, seed + 3)
+    wall["make_data_s"] = time.perf_counter() - t0
+    lefts, rights = list(r1), list(r2)
+    per_stage = {}
+    for trail in (ST.STAGE_TIMES, S.CONSTRUCT_PHASES, S.GAP_CLOSER_STATS, S.RR_STATS,
+                  S.MODE_STATS):
+        trail.clear()
+    # -- the meta path: launch counts from 0, read right after ----------------
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    CK.canonical_window_keys.launches = 0
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    out = os.path.join(workdir, "meta")
+    t0 = time.perf_counter()
+    with after_every_stage(stage_launches_hook(per_stage)):
+        res = run_assembly(lefts + rights, list(k_list), out, mode="meta",
+                           paired_libs=[(lefts, rights)], read_length=rl, device=dev,
+                           checkpoints="none")
+    sync(dev)
+    wall["run_assembly_s"] = time.perf_counter() - t0
+    launches = CK.canonical_window_keys.launches
+    CK.canonical_window_keys.launch_shapes = None
+    peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                else None)
+
+    k_last = k_list[-1]
+    ran = [(k, s) for k, s, _ in ST.STAGE_TIMES]
+    want = [(k, s) for k, s in stage_ids(k_list) if s != "mismatch_correction"
+            and s not in RR_STAGE_IDS]
+    want[-1:-1] = [(k_last, s) for s in META_RR_IDS]
+    check(ran == want, f"meta: the stages that ran are {ran}")
+    first_pe = os.path.join(out, f"K{k_last}", "first_pe_contigs.fasta")
+    check(os.path.exists(first_pe) and os.path.getsize(first_pe) > 0,
+          "meta: first_pe_contigs.fasta is missing or empty")
+    rr = {s: st for _k, s, st in S.RR_STATS}
+    check(list(rr) == [s for s in META_RR_IDS if s != "second_phase_setup"],
+          f"meta: repeat-resolution records {list(rr)}")
+    pre, main = rr["pair_info_count_preliminary"], rr["pair_info_count"]
+    for key in ("pairs", "mapped_left", "mapped_right", "mapped_both", "raw_entries"):
+        check(pre[key] == main[key], f"meta: the two PairInfoCount passes differ in {key}")
+    check(main["index_timings"] == pre["index_timings"],
+          "meta: the second PairInfoCount built a second device index")
+    check(launches > 0 or dev.type == "cpu", "meta: the canonical-windows kernel was not launched")
+    for sid in ("pair_info_count_preliminary", "pair_info_count"):
+        check(per_stage[f"k={k_last} {sid}"] > 0 or dev.type == "cpu",
+              f"meta: {sid} mapped the reads without the kernel")
+    [(_k, _s, setup)] = [m for m in S.MODE_STATS if m[1] == "second_phase_setup"]
+    check(setup["trusted_paths"] > 0, "meta: SecondPhaseSetup stored no trusted path")
+    for name in OUTPUT_FILES[:4]:
+        path = os.path.join(out, name)
+        check(os.path.exists(path) and os.path.getsize(path) > 0, f"{path} is missing")
+
+    # -- contigs against the genomes -------------------------------------------
+    # (raw reads, no error correction: a contig of the shallow genomes may keep
+    # a few substitutions, and one may join two genomes at their shared segment)
+    t0 = time.perf_counter()
+    long_ = [c.seq for c in res.contigs if len(c.seq) >= 1000]
+    placed = substitutions_against(long_, genomes)
+    wall["placement_s"] = time.perf_counter() - t0
+    near = [d is not None and d <= max(3, 0.003 * len(s)) for s, (d, _g) in zip(long_, placed)]
+    per_genome = []
+    for gi, g in enumerate(genomes):
+        got = [len(s) for s, (d, gs), ok in zip(long_, placed, near) if ok and gi in gs]
+        per_genome.append({"genome_nt": len(g), "coverage": coverages[gi],
+                           "pairs": int((origin == gi).sum()), "contigs_1kb": len(got),
+                           "contig_nt": sum(got), "longest": max(got, default=0),
+                           "exact": sum(1 for d, gs in placed if d == 0 and gs == {gi})})
+    exact_one = sum(d == 0 and len(gs) == 1 for d, gs in placed)
+    exact_shared = sum(d == 0 and len(gs) > 1 for d, gs in placed)
+    # the rest must be exact pieces joined inside a repeat: the shared segment,
+    # which no insert spans (greedy extension crosses it, as for the isolate)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    texts = [acgt[s].tobytes().decode() for g in genomes for s in (g, (3 - g)[::-1])]
+    t0 = time.perf_counter()
+    joined = {i: repeat_joints(long_[i], texts) for i, ok in enumerate(near) if not ok}
+    wall["joint_check_s"] = time.perf_counter() - t0
+    unexplained = sorted(len(long_[i]) for i, cuts in joined.items() if cuts is None)
+    check(long_ and len(unexplained) <= max(2, 0.01 * len(long_)),
+          f"meta: {len(unexplained)} of {len(long_)} contigs of 1 kb or more lie in no genome "
+          f"within a few substitutions, nor as exact pieces joined at repeats: "
+          f"{unexplained[-5:]}")
+    check(per_genome[0]["contigs_1kb"] > 0, "meta: the deepest genome has no contig of 1 kb")
+
+    trails = {"stage_times": {f"k={k} {s}": t for k, s, t in ST.STAGE_TIMES},
+              "construction": {f"k={k}": tm for k, tm in S.CONSTRUCT_PHASES},
+              "gap_closer": {f"k={k} {s}": st for k, s, st in S.GAP_CLOSER_STATS}}
+
+    # -- the small community on the card, for the CPU worker's run --------------
+    small = next(small_runs(seed, small_sizes))
+    CK.canonical_window_keys.launches = 0
+    small_rec = run_small(*small[:4], os.path.join(workdir, "card_side", "meta"), dev)
+    small_launches = CK.canonical_window_keys.launches
+    check(small_launches > 0 or dev.type == "cpu",
+          "meta, 300 kb copy: the canonical-windows kernel was not launched")
+    rec = {
+        "phase": "meta",
+        "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "dataset": {"genomes_nt": list(sizes), "coverages": list(coverages), "shared_nt": 5000,
+                    "read_len": rl, "pairs": int(len(lefts)), "error_rate": 0.003,
+                    "insert": [400, 30], "seed": seed + 3},
+        "k_list": list(k_list), "wall_s": wall, **trails,
+        "repeat_resolution": rr,
+        "second_phase_setup": setup,
+        "launches": launches,
+        "launches_by_caller": launches_by_caller(shapes),
+        "launches_by_stage": {s: n for s, n in per_stage.items() if n},
+        "peak_device_gib": peak_gib,
+        "contig_stats": assembly_stats(res.contigs),
+        "contigs_1kb": len(long_), "exact_in_one_genome": exact_one,
+        "exact_in_two_genomes": exact_shared,
+        "with_substitutions": sum(near) - exact_one - exact_shared,
+        "joined_at_repeats": sorted(len(long_[i]) for i, c in joined.items() if c),
+        "unexplained": unexplained, "per_genome": per_genome,
+        "small_card_run": {"genomes_nt": small[4]["genomes"], "wall_s": small_rec["wall_s"],
+                           "launches": small_launches, "contigs": small_rec["contigs"]},
+    }
+    return rec, {"meta": launches, "meta_small": small_launches}, shapes, small_rec
+
+
+def run_cli(dev, workdir: str, name: str, args: list, timeout_s: int = 600):
+    """`python -m spades_tpu_torch.pipeline.main` in a subprocess with the
+    small sets' device thresholds; returns (output dir, wall s, launches)."""
+    import re
+
+    out = os.path.join(workdir, name)
+    cmd = [sys.executable, "-m", "spades_tpu_torch.pipeline.main", *args, "-o", out]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **SMALL_SET_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=timeout_s)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{name}: the CLI exited with {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    with open(os.path.join(out, "spades.log")) as fh:
+        log_text = fh.read()
+    found = re.findall(r"kernel launches: canonical_windows=(\d+)", log_text)
+    check(len(found) == 1, f"{name}: its log does not say how often it launched the kernel")
+    launches = int(found[0])
+    check(launches > 0 or dev.type == "cpu", f"{name}: the kernel was not launched")
+    return out, wall_s, launches, log_text
+
+
+def phase_hybrid(dev, workdir: str, seed: int, small_sizes: dict, gap_closed: int, gap_state):
+    """Long reads: the gap set (phase 7's genome and pairs, not corrected)
+    with 8x of noisy 10 kb reads through `run_assembly([55], long_reads=)`
+    on the card (the CPU worker makes the same run), and once through the
+    CLI's `--nanopore`."""
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    name, k_list, reads, kw, extra = next(r for r in small_runs(seed, small_sizes)
+                                          if r[0] == "hybrid")
+    CK.canonical_window_keys.launches = 0
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    card_dir = os.path.join(workdir, "card_side", "hybrid")
+    rec_run = run_small(name, k_list, reads, kw, card_dir, dev)
+    launches = CK.canonical_window_keys.launches
+    CK.canonical_window_keys.launch_shapes = None
+    check(launches > 0 or dev.type == "cpu", "hybrid: the kernel was not launched")
+    [(_k, _s, hyb)] = [m for m in rec_run["modes"] if m[1] == "hybrid_aligning"]
+    check(hyb["aligned"] > 0.9 * hyb["reads"], f"hybrid: only {hyb['aligned']} of "
+                                               f"{hyb['reads']} long reads aligned")
+    check(hyb["paths"] > 0, "hybrid: no long-read path was stored")
+    paired_closed = sum(row[3] for row in rec_run["gap_closer"])
+
+    lr_path = os.path.join(workdir, "long_reads.fasta")
+    from spades_tpu_torch.tools import synthetic
+
+    synthetic.write_fasta(lr_path, kw["long_reads"])
+    fq = [os.path.join(workdir, "cli_raw_1.fq"), os.path.join(workdir, "cli_raw_2.fq")]
+    synthetic.write_fastq(fq[0], gap_state["r1"], 1)
+    synthetic.write_fastq(fq[1], gap_state["r2"], 2)
+    out, cli_s, cli_launches, log_text = run_cli(
+        dev, workdir, "cli_nanopore",
+        ["-1", fq[0], "-2", fq[1], "--nanopore", lr_path, "-k", "55", "--only-assembler"])
+    check("hybrid aligning:" in log_text, "CLI --nanopore: HybridAligning did not run")
+    for fname in ("contigs.fasta", "scaffolds.fasta"):
+        check(read_bytes(os.path.join(out, fname)) == read_bytes(os.path.join(card_dir, fname)),
+              f"CLI --nanopore: {fname} differs from the library call's")
+    rec = {
+        "phase": "hybrid",
+        "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "dataset": {"genome_nt": small_sizes["gap_genome"], "planted_gaps":
+                    small_sizes["gap_count"], "pairs": len(reads) // 2, **extra,
+                    "long_read_errors": {"substitution": 0.04, "insertion": 0.03,
+                                         "deletion": 0.03}},
+        "wall_s": rec_run["wall_s"], "stage_times": rec_run["stage_times"],
+        "hybrid_aligning": hyb,
+        "closed": {"paired_reads": paired_closed, "long_reads": hyb["closed"],
+                   "total": paired_closed + hyb["closed"],
+                   "phase_7_corrected_careful": gap_closed},
+        "launches": launches, "launches_by_caller": launches_by_caller(shapes),
+        "cli": {"wall_s": cli_s, "launches": cli_launches},
+    }
+    return rec, {"hybrid": launches, "cli_nanopore": cli_launches}, shapes, rec_run
+
+
+def phase_modes(dev, workdir: str, seed: int, small_sizes: dict, gap_state):
+    """The plasmid set in `plasmid`, `metaplasmid`, `metaviral`, `sc` and
+    `sewage` mode, and the gap set from phase 7's GFA
+    (`run_assembly(assembly_graph=)`, then the CLI's `--assembly-graph`), on
+    the card at K = 55 (the CPU worker makes the same runs)."""
+    import numpy as np
+
+    from spades_tpu_torch.io.fastx import read_fastx
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    gfa = os.path.join(gap_state["out"], GFA_NAME)
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    recs, report, launches = {}, {}, {}
+    for name, k_list, reads, kw, extra in small_runs(seed, small_sizes, gfa):
+        if name not in MODES + ("assembly_graph",):
+            continue
+        card_dir = os.path.join(workdir, "card_side", name)
+        CK.canonical_window_keys.launches = 0
+        recs[name] = r = run_small(name, k_list, reads, kw, card_dir, dev)
+        launches[f"modes_{name}"] = CK.canonical_window_keys.launches
+        check(launches[f"modes_{name}"] > 0 or dev.type == "cpu",
+              f"{name}: the kernel was not launched")
+        stats = {s: st for _k, s, st in r["modes"]}
+        row = report[name] = {"wall_s": r["wall_s"], "contigs": r["contigs"],
+                              "stage_times": r["stage_times"]}
+        if name in ("plasmid", "metaplasmid", "metaviral"):
+            row["chromosome_removal"] = stats["chromosome_removal"]
+            check(stats["chromosome_removal"]["removed"] > 0,
+                  f"{name}: no chromosomal edge was removed")
+        if name == "plasmid":
+            seqs = [rr.seq for rr in read_fastx(os.path.join(card_dir, "contigs.fasta"))]
+            plas = extra["plasmids"]
+            circ = [np.concatenate([p, p]) for p in plas]      # contigs may cross the origin
+            where = substitutions_against(seqs, circ + [extra["chromosome"]])
+            row["kept"] = [{"nt": len(s), "substitutions": d, "in": sorted(gs)}
+                           for s, (d, gs) in zip(seqs, where)]
+            check(any(d == 0 and max(gs) < len(plas) for d, gs in where if gs),
+                  "plasmid: no kept contig lies in a plasmid")
+        if name in ("metaplasmid", "metaviral"):
+            row["metaplasmid_extraction"] = stats["metaplasmid_extraction"]
+            comps = sorted(f for f in files_under(card_dir) if "components" in f)
+            row["component_files"] = comps
+            check(comps, f"{name}: no components*.fasta was written")
+        if name == "assembly_graph":
+            row["load_graph"] = stats["load_graph"]
+            check(r["stages"][0] == [55, "load_graph"], "assembly_graph: LoadGraph did not run")
+    CK.canonical_window_keys.launch_shapes = None
+    out, cli_s, cli_launches, log_text = run_cli(
+        dev, workdir, "cli_assembly_graph",
+        ["-1", os.path.join(workdir, "cli_raw_1.fq"), "-2", os.path.join(workdir, "cli_raw_2.fq"),
+         "--assembly-graph", gfa, "-k", "55", "--only-assembler"])
+    check("Load Graph" in log_text, "CLI --assembly-graph: LoadGraph did not run")
+    for fname in ("contigs.fasta", "scaffolds.fasta", GFA_NAME):
+        a, b = os.path.join(out, fname), os.path.join(workdir, "card_side", "assembly_graph",
+                                                      fname)
+        check(read_bytes(a) == read_bytes(b),
+              f"CLI --assembly-graph: {fname} differs from the library call's")
+    rec = {"phase": "modes", "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+           "dataset": {"chromosome_nt": small_sizes["chromosome"], "coverage": 40,
+                       "plasmids_nt": small_sizes["plasmids"], "plasmid_multiples": [3, 5, 8],
+                       "k": 55},
+           "runs": report, "launches": launches, "launches_by_caller": launches_by_caller(shapes),
+           "cli_assembly_graph": {"wall_s": cli_s, "launches": cli_launches}}
+    return rec, {**launches, "cli_assembly_graph": cli_launches}, shapes, recs
+
+
+def phase_card_against_cpu(workdir: str, card_recs: dict, worker, timeout_s: int = 900):
+    """Wait for the CPU worker, then hold every card run of phases 9-11 to
+    its CPU run: every output file, and the trails (stages, gap closer,
+    repeat resolution, mode stages)."""
+    proc, cpu_dir, log = worker
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    finally:
+        log.close()
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        with open(os.path.join(workdir, "cpu_worker.log")) as fh:
+            tail = fh.read()[-3000:]
+        raise SmokeFailure(f"the CPU worker exited with {rc}: {tail}")
+    runs = {}
+    for name, card in card_recs.items():
+        with open(os.path.join(cpu_dir, f"{name}.json")) as fh:
+            cpu = json.load(fh)
+        a, b = os.path.join(workdir, "card_side", name), os.path.join(cpu_dir, name)
+        names = files_under(a)
+        check(names == files_under(b), f"{name}: the card and the CPU wrote different files: "
+                                       f"{sorted(names ^ files_under(b))[:10]}")
+        for rel in sorted(names):
+            check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+                  f"{name}: the card's and the CPU's {rel} differ")
+        for key in ("contigs", "stages", "gap_closer", "rr", "modes"):
+            check(json.loads(json.dumps(card[key])) == cpu[key],
+                  f"{name}: the card's and the CPU's {key} differ")
+        runs[name] = {"files": len(names), "card_s": card["wall_s"], "cpu_s": cpu["wall_s"]}
+    return {"phase": "card_against_cpu", "tolerance": 0, "runs": runs,
+            "waited_for_cpu_s": waited}
+
+
+# ---------------------------------------------------------------------------
+# 13. the shapes the paths gave the kernel that phase 2 did not hold
 # ---------------------------------------------------------------------------
 
 def phase_observed_shapes(dev, observed, held, max_groups: int = 40) -> dict:
@@ -1334,69 +1851,111 @@ def kernels_line(kernel_rec: dict, observed_rec: dict, launches: dict) -> dict:
 
 def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
-        gap_count: int = 30, total_tolerance: float = 0.02):
+        gap_count: int = 30, total_tolerance: float = 0.02, meta_sizes=META_SIZES,
+        small_sizes=None):
     """All phases on `dev`; returns the kernels line.  Raises on any failure.
     total_tolerance: how far the contigs' total may be from the genome size
-    (a rehearsal on a small genome, most of it planted repeats, needs more)."""
+    (a rehearsal on a small genome, most of it planted repeats, needs more);
+    meta_sizes, small_sizes: the genomes of phase 9 and the sets of phases 9
+    to 11's card-against-CPU runs (`SMALL_SIZES`)."""
     from spades_tpu_torch.ops import cuda_kernels as CK
     from spades_tpu_torch.tools import kernel_shapes as KS
 
+    small_sizes = dict(SMALL_SIZES, **(small_sizes or {}), gap_genome=gap_genome,
+                       gap_count=gap_count)
     t0 = time.perf_counter()
     emit(phase_toolchain(dev))
     kern = phase_kernels(dev, main_shapes, rand_R=rand_R)
     emit(kern)
     observed = collections.Counter()
+    launches = {}
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
+    worker = None
     try:
         CK.canonical_window_keys.launch_shapes = observed
-        rec, main_launches, state = phase_main_path(dev, workdir, genome_size, coverage,
-                                                    subset_pairs, seed)
+        rec, launches["construction"], state = phase_main_path(
+            dev, workdir, genome_size, coverage, subset_pairs, seed)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
-        rec, map_launches = phase_mapping(dev, state, subset_pairs, seed)
+        rec, launches["mapping"] = phase_mapping(dev, state, subset_pairs, seed)
         CK.canonical_window_keys.launch_shapes = None
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         del state["store"], state["graph"]
-        rec, ec_launches, shapes, corrected = phase_error_correction(dev, state, seed)
+        rec, launches["error_correction"], shapes, corrected = phase_error_correction(
+            dev, state, seed)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
-        rec, asm_launches, shapes = phase_assembly(dev, workdir, state, seed, corrected,
-                                                   total_tolerance=total_tolerance)
+        rec, launches["assembly"], shapes = phase_assembly(
+            dev, workdir, state, seed, corrected, total_tolerance=total_tolerance)
         del corrected
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         del state
-        rec, gap_launches, shapes, gap_state = phase_gap(dev, workdir, seed, gap_genome,
-                                                         n_gaps=gap_count)
+        rec, launches["gap_closing"], shapes, gap_state = phase_gap(
+            dev, workdir, seed, gap_genome, n_gaps=gap_count)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
-        rec, cli_launches = phase_cli(dev, workdir, gap_state)
+        gap_closed = rec["closed"]
+        # the CPU side of phases 9 to 11 runs meanwhile, in a process of its own
+        worker = start_cpu_worker(workdir, seed, small_sizes,
+                                  os.path.join(gap_state["out"], GFA_NAME))
+        rec, launches["cli"] = phase_cli(dev, workdir, gap_state)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        card_runs = {}
+        rec, counts, shapes, card_runs["meta"] = phase_meta(
+            dev, workdir, seed, small_sizes, sizes=meta_sizes)
+        launches.update(counts)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        rec, counts, shapes, card_runs["hybrid"] = phase_hybrid(
+            dev, workdir, seed, small_sizes, gap_closed, gap_state)
+        launches.update(counts)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        rec, counts, shapes, runs = phase_modes(dev, workdir, seed, small_sizes, gap_state)
+        launches.update(counts)
+        card_runs.update(runs)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
+        rec = phase_card_against_cpu(workdir, card_runs, worker)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
     finally:
         CK.canonical_window_keys.launch_shapes = None
+        if worker is not None:
+            if worker[0].poll() is None:
+                worker[0].kill()
+                worker[0].wait()
+            worker[2].close()
         shutil.rmtree(workdir, ignore_errors=True)
     seen = phase_observed_shapes(dev, observed, main_shapes or KS.MAIN_SHAPES)
     seen["total_s"] = time.perf_counter() - t0
     emit(seen)
-    return kernels_line(kern, seen, {"construction": main_launches, "mapping": map_launches,
-                                     "error_correction": ec_launches,
-                                     "assembly": asm_launches, "gap_closing": gap_launches,
-                                     "cli": cli_launches})
+    return kernels_line(kern, seen, launches)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=42, help="seed of the synthetic isolate")
+    ap.add_argument("--seed", type=int, default=42, help="seed of the synthetic data")
+    ap.add_argument("--cpu-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sizes", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gfa", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "spades_tpu_torch")):
         print("chip_smoke: the spades_tpu_torch package is not beside this script",
               file=sys.stderr)
         return 2
+    if args.cpu_worker:          # the CPU side of phases 9 to 11, started by `run`
+        sys.path.insert(0, HERE)
+        return cpu_worker(args.cpu_worker, args.seed, json.loads(args.sizes), args.gfa or None)
     import torch
 
     if not torch.cuda.is_available():

@@ -72,6 +72,7 @@ def bounded_dijkstra(
     length: str = "kmer",
     edge_mask: np.ndarray | None = None,
     max_vertices: int | None = None,
+    csr: tuple[np.ndarray, np.ndarray] | None = None,
 ) -> DijkstraResult:
     """Shortest distances within max_dist from every source, batched.
 
@@ -79,14 +80,16 @@ def bounded_dijkstra(
     restricts traversal (the put-checker role).  max_vertices bounds the
     number of vertices recorded per source (SPAdes'
     MAX_VERTEX_NUMBER process checker — a work bound, not a semantics
-    change: a truncated source is flagged in `truncated`)."""
+    change: a truncated source is flagged in `truncated`).  csr: the
+    adjacency `_csr(g, direction, edge_mask)` gives, for a caller that runs
+    many searches over one graph state (building it sorts every edge)."""
     sources = np.asarray(sources, np.int64)
     S = len(sources)
     V = g.num_vertices
     if S == 0:
         z = np.zeros(0, np.int64)
         return DijkstraResult(z, z, z, z, np.zeros(0, bool))
-    off, eo = _csr(g, direction, edge_mask)
+    off, eo = csr if csr is not None else _csr(g, direction, edge_mask)
     head = g.e_end[eo] if direction == "fwd" else g.e_start[eo]
     w = _edge_weights(g, length)[eo]
     deg = off[1:] - off[:-1]

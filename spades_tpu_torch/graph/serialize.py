@@ -71,11 +71,17 @@ def save_long_reads(path: str, storage) -> None:
 
 
 def load_long_reads(path: str):
-    """LongReadStorage from `save_long_reads`'s archive: its class lives in
-    `alignment/long_read.py`, which is not ported yet."""
-    raise NotImplementedError(
-        f"{path}: long-read storage (alignment/long_read.py) is not ported yet "
-        "(ROADMAP A13)")
+    """LongReadStorage from `save_long_reads`'s archive, its paths in the
+    order they were saved (the dict order the long-read chooser reads)."""
+    from ..alignment.long_read import LongReadStorage
+
+    z = np.load(path)
+    edges, offsets, counts = z["edges"], z["offsets"], z["counts"]
+    storage = LongReadStorage()
+    for i in range(len(counts)):
+        p = tuple(int(e) for e in edges[offsets[i] : offsets[i + 1]])
+        storage.paths[p] = int(counts[i])
+    return storage
 
 
 def save_kmer_mapper(path: str, mapper) -> None:

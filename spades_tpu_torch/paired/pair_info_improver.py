@@ -56,6 +56,23 @@ class _Improver:
         self.var = var
         self.lens = g.edge_kmer_lengths()
         self.stats = ImproveStats()
+        self._adjacency = {}
+
+    def _csr(self, direction: str):
+        """One adjacency per direction (`dijkstra._csr`): the graph does not
+        change while the improver runs, and building one sorts every edge."""
+        from ..graph.dijkstra import _csr
+
+        if direction not in self._adjacency:
+            self._adjacency[direction] = _csr(self.g, direction, None)
+        return self._adjacency[direction]
+
+    def _edges_at(self, v: int, direction: str) -> np.ndarray:
+        """The alive out-edges ('fwd') or in-edges ('bwd') of v in ascending
+        id order, as `g.out_edges_of` / `g.in_edges_of` give them without
+        their scan of every edge slot."""
+        off, eo = self._csr(direction)
+        return eo[off[v] : off[v + 1]]
 
     # -- structural helpers -------------------------------------------------
     def _mirror(self, e1: int, e2: int, d: float) -> tuple[int, int, float]:
@@ -112,7 +129,7 @@ class _Improver:
         while stack and budget:
             budget -= 1
             v, dist = stack.pop()
-            for e in g.out_edges_of(v):
+            for e in self._edges_at(v, "fwd"):
                 nd = dist + int(self.lens[e])
                 if nd > hi:
                     continue
@@ -185,7 +202,7 @@ class _Improver:
         cur_dist = dists[cur]
         while cur_dist > 0:
             prev_edge = None
-            for e in g.in_edges_of(cur):
+            for e in self._edges_at(cur, "bwd"):
                 e = int(e)
                 s = int(g.e_start[e])
                 if s in dists and suffix_len + int(self.lens[e]) + dists[s] <= dist:
@@ -207,6 +224,9 @@ class _Improver:
         upper = _pair_info_path_upper_bound(g.k, self.is_, self.is_var)
         added = 0
         new_points: list[tuple[int, int, float, float]] = []
+        # one adjacency for every search (a new one per search sorted every
+        # edge slot: most of the pass's time on a large raw graph)
+        csr = self._csr("fwd")
         for base, nbrs in list(self.rows.items()):
             infos = sorted(
                 ((d, e2, w) for e2, hist in nbrs.items() for d, w in hist),
@@ -214,7 +234,7 @@ class _Improver:
             if not infos:
                 continue
             res = bounded_dijkstra(
-                g, [int(g.e_end[base])], upper, max_vertices=3000
+                g, [int(g.e_end[base])], upper, max_vertices=3000, csr=csr
             )
             dists = {
                 int(v): int(dd) for v, dd in zip(res.vertices, res.dists)

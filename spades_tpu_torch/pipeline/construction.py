@@ -60,7 +60,7 @@ def construct_graph(
     if k % 2 == 0:
         raise ValueError("k must be odd")
     if early_tip_clip or early_at_clip:
-        raise NotImplementedError("early tip / A-T clipping is not ported yet")
+        raise NotImplementedError("early tip / A-T clipping is not ported yet (ROADMAP A13e)")
     dev = resolve_device(device)
     tm: dict = {}
     k1 = k + 1

@@ -11,13 +11,15 @@ per-K state is checkpointed through the stage manager.
 
     python -m spades_tpu_torch.pipeline.main -1 r1.fq -2 r2.fq -o out
 
-Ported so far: isolate and multicell assembly of short reads, with read
-error correction (BayesHammer by default, IonHammer under `--iontorrent`;
-`--only-assembler` skips it, `--only-error-correction` stops after it), with
-or without repeat resolution, and careful mode (`--careful`,
-`--mismatch-correction`).  Every option whose code is not ported yet raises
-`NotImplementedError` naming the ROADMAP item that ports it; nothing is
-skipped silently.
+Ported so far: isolate, multicell, `--sc`, `--sewage`, `--meta`,
+`--plasmid`, `--metaplasmid` and `--metaviral` assembly of short reads, with
+read error correction (BayesHammer by default, IonHammer under
+`--iontorrent`; `--only-assembler` skips it, `--only-error-correction` stops
+after it), with or without repeat resolution, careful mode (`--careful`,
+`--mismatch-correction`), long reads (`--pacbio`, `--nanopore`, `--sanger`)
+and a GFA start (`--assembly-graph`).  Every option whose code is not ported
+yet raises `NotImplementedError` naming the ROADMAP item that ports it;
+nothing is skipped silently.
 """
 from __future__ import annotations
 
@@ -103,16 +105,16 @@ def build_parser() -> argparse.ArgumentParser:
     inp.add_argument("--hqmp-1", dest="hqmp1", action="append", default=[], help="left high-quality mate-pair reads")
     inp.add_argument("--hqmp-2", dest="hqmp2", action="append", default=[], help="right high-quality mate-pair reads")
     inp.add_argument("--merged", action="append", default=[], help="merged overlapping paired reads")
-    inp.add_argument("--pacbio", action="append", default=[], help="PacBio CLR reads (not ported yet)")
-    inp.add_argument("--nanopore", action="append", default=[], help="Oxford Nanopore reads (not ported yet)")
-    inp.add_argument("--sanger", action="append", default=[], help="Sanger reads (not ported yet)")
+    inp.add_argument("--pacbio", action="append", default=[], help="PacBio CLR reads")
+    inp.add_argument("--nanopore", action="append", default=[], help="Oxford Nanopore reads")
+    inp.add_argument("--sanger", action="append", default=[], help="Sanger reads (treated as accurate long reads)")
     inp.add_argument("--fl-rna", dest="fl_rna", action="append", default=[],
                      help="full-length transcripts (rna mode; not ported yet)")
     inp.add_argument("--trusted-contigs", action="append", default=[], help="trusted contigs")
     inp.add_argument("--untrusted-contigs", action="append", default=[], help="untrusted contigs")
     inp.add_argument("--dataset", help="dataset description in YAML (needs PyYAML)")
     inp.add_argument("--assembly-graph", dest="assembly_graph", default=None,
-                     help="start from an existing assembly graph (GFA; not ported yet)")
+                     help="start from an existing assembly graph (GFA) instead of constructing one")
     inp.add_argument("--custom-hmms", action="append", default=[], help="profile HMM file(s) for bio/corona modes (not ported yet)")
     inp.add_argument("--iontorrent", action="store_true", help="IonTorrent data: homopolymer-space error correction (ionhammer)")
     inp.add_argument("--test", action="store_true", help="run on SPAdes' bundled E. coli 1K dataset and check the result")
@@ -206,19 +208,13 @@ def refuse_unported(args, mode: str) -> None:
     if args.num_processes > 1:
         raise NotImplementedError(
             "--num-processes > 1 (multi-process runs) is not ported yet (ROADMAP A15)")
-    long_inputs = [f"--{n.replace('_', '-')}" for n in ("pacbio", "nanopore", "sanger", "fl_rna")
-                   if getattr(args, n)]
-    if long_inputs:
+    if args.fl_rna:
         raise NotImplementedError(
-            f"long-read inputs ({', '.join(long_inputs)}) are not ported yet (ROADMAP A13)")
+            "--fl-rna (full-length transcripts, rna mode) is not ported yet (ROADMAP A13e)")
     if args.custom_hmms:
-        raise NotImplementedError("--custom-hmms is not ported yet (ROADMAP A13)")
-    if args.assembly_graph:
-        raise NotImplementedError("--assembly-graph is not ported yet (ROADMAP A13)")
-    _refuse_unported(
-        mode=mode, long_reads=None, assembly_graph=None, series_analysis=args.series_analysis,
-        ss=args.ss, hmm_profiles=None,
-    )
+        raise NotImplementedError("--custom-hmms is not ported yet (ROADMAP A13f)")
+    _refuse_unported(mode=mode, series_analysis=args.series_analysis, ss=args.ss,
+                     hmm_profiles=None)
 
 
 def setup_logging(output_dir: str) -> None:
@@ -373,6 +369,12 @@ def main(argv=None) -> int:
             return 64
         if lib.left or lib.right:
             dataset.libraries.append(lib)
+    for p in args.pacbio:
+        dataset.libraries.append(SequencingLibrary(type="pacbio", left=_seqs(p)))
+    for p in args.nanopore:
+        dataset.libraries.append(SequencingLibrary(type="nanopore", left=_seqs(p)))
+    for p in args.sanger:
+        dataset.libraries.append(SequencingLibrary(type="sanger", left=_seqs(p)))
     for p in args.trusted_contigs:
         dataset.libraries.append(SequencingLibrary(type="trusted-contigs", left=_seqs(p)))
     for p in args.untrusted_contigs:
@@ -382,7 +384,7 @@ def main(argv=None) -> int:
     paired_libs = dataset.paired()
     long_reads = dataset.long_reads()
     trusted = dataset.contigs()
-    if not reads:
+    if not reads and not args.assembly_graph:
         log.error("no reads parsed")
         return 64
 
@@ -515,6 +517,7 @@ def main(argv=None) -> int:
         careful=args.careful,
         ss=args.ss,
         series_analysis=args.series_analysis,
+        assembly_graph=args.assembly_graph,
         disable_rr=args.disable_rr,
         mismatch_correction=(args.careful or args.mismatch_correction)
         if args.stop_after != "as" else False,

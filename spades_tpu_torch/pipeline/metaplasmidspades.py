@@ -1,0 +1,7 @@
+"""`metaplasmidspades.py` wrapper — see `spades_tpu_torch.pipeline.wrappers`."""
+import sys
+
+from .wrappers import metaplasmidspades as main
+
+if __name__ == "__main__":
+    sys.exit(main())

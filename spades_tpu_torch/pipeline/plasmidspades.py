@@ -1,0 +1,7 @@
+"""`plasmidspades.py` wrapper — see `spades_tpu_torch.pipeline.wrappers`."""
+import sys
+
+from .wrappers import plasmidspades as main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,12 +4,16 @@ The outer loop mirrors `spades_pipeline/stages/spades_stage.py:282-396`
 (per-K IterationStage chain with additional_contigs feed-forward, then final
 copy) on top of the inner stage manager (pipeline/stages.py).
 
-Ported so far: `mode="multicell"` and `mode="isolate"` (the same stage
-list: no stage branches on isolate), with mismatch correction on the last
-K under `careful` / `mismatch_correction`, and repeat resolution on the last
-K (PairInfoCount, DistanceEstimation, RepeatResolution) unless `disable_rr`.
-Every argument that asks for a stage not ported yet raises
-`NotImplementedError`; nothing is skipped.
+Ported so far: the modes `multicell`, `isolate` (no stage branches on
+it), `sc` and `sewage` (they change only the simplification config and the
+coverage model's branch, or skip error correction before the run), `meta`
+(metaSPAdes' two-step repeat resolution), `plasmid`, `metaplasmid` and
+`metaviral` (chromosome removal and the metaplasmid loop); long reads
+(`long_reads`: HybridAligning) and a GFA start (`assembly_graph`:
+LoadGraph); mismatch correction on the last K under `careful` /
+`mismatch_correction`, and repeat resolution on the last K unless
+`disable_rr`.  Every argument that asks for a stage not ported yet raises
+`NotImplementedError` naming its ROADMAP item; nothing is skipped.
 """
 from __future__ import annotations
 
@@ -23,15 +27,20 @@ import numpy as np
 from ..graph.simplify import SimplifyConfig
 from .. import resolve_device
 from .spades_stages import (
+    ChromosomeRemoval,
     Construction,
     ContigOutput,
     DistanceEstimation,
     GapClosing,
     GenomicInfoFiller,
+    HybridAligning,
+    LoadGraph,
+    MetaplasmidExtraction,
     MismatchCorrection,
     PairInfoCount,
     RawSimplification,
     RepeatResolution,
+    SecondPhaseSetup,
     Simplification,
 )
 from .stages import AssemblyContext, SavesPolicy, StageManager
@@ -68,20 +77,23 @@ def mode_simplify_config(mode: str, read_length: int) -> SimplifyConfig:
     return cfg
 
 
-def _refuse_unported(*, mode, long_reads, assembly_graph, series_analysis, ss,
-                     hmm_profiles) -> None:
+# modes whose stages are not ported yet, with the ROADMAP item of each
+UNPORTED_MODES = {
+    "rna": "A13e", "rnaviral": "A13e",     # early A/T clipping, SSEdgeSplit
+    "bio": "A13f", "corona": "A13f",       # DomainAnalysis (hmm/)
+}
+
+
+def _refuse_unported(*, mode, series_analysis, ss, hmm_profiles) -> None:
     """Raise for every argument whose stages are not ported yet, naming the
     ROADMAP item that ports them."""
-    if mode not in ("multicell", "isolate"):
-        # meta's two-step repeat resolution (SecondPhaseSetup) goes with it
+    if mode in UNPORTED_MODES:
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP A13); "
-            "only 'multicell' and 'isolate' are")
-    for name, value in (("long_reads", long_reads), ("assembly_graph", assembly_graph),
-                        ("series_analysis", series_analysis), ("ss", ss),
-                        ("hmm_profiles", hmm_profiles)):
+            f"mode {mode!r} is not ported yet (ROADMAP {UNPORTED_MODES[mode]})")
+    for name, value, item in (("series_analysis", series_analysis, "A13g"),
+                              ("ss", ss, "A13e"), ("hmm_profiles", hmm_profiles, "A13f")):
         if value:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A13)")
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
 
 
 def run_assembly(
@@ -116,10 +128,8 @@ def run_assembly(
     # mismatch-correction forces the corrector even outside --careful)
     if mismatch_correction is None:
         mismatch_correction = careful
-    _refuse_unported(
-        mode=mode, long_reads=long_reads, assembly_graph=assembly_graph,
-        series_analysis=series_analysis, ss=ss, hmm_profiles=hmm_profiles,
-    )
+    _refuse_unported(mode=mode, series_analysis=series_analysis, ss=ss,
+                     hmm_profiles=hmm_profiles)
     if not k_list:
         raise ValueError("k_list is empty")
     dev = resolve_device(device)
@@ -194,6 +204,7 @@ def run_assembly(
             output_dir=kdir,
             reads=[r for r in reads if len(r) > k],
             paired=list(paired_libs or []),
+            long_reads=list(long_reads or []),
             extra_sequences=list(prev_contigs),
             read_length=read_length,
             mode=mode,
@@ -203,40 +214,66 @@ def run_assembly(
         ctx.read_store = count_store
         ctx.paired_stores = paired_stores
         mgr = StageManager(SavesPolicy(checkpoints))
-        from .config_overlay import apply_overlay, construction_kwargs
+        if assembly_graph and is_last:
+            # start from a GFA graph (load_graph.cpp / --assembly-graph)
+            mgr.add(LoadGraph(assembly_graph), GenomicInfoFiller())
+        elif assembly_graph:
+            continue  # GFA input: no multi-K laddering, main iteration only
+        else:
+            from .config_overlay import apply_overlay, construction_kwargs
 
-        # Early tip clipping exists in SPAdes to shrink the input of its
-        # (memory-bound, sequential) condenser (construction.cpp:448-449);
-        # here condensation is a native radix pass, so pre-condensation
-        # clipping buys nothing while graph-level tip clipping removes the
-        # same tips.  Off by default; a config overlay that turns it on meets
-        # construct_graph's NotImplementedError until it is ported.  The A/T
-        # clipper runs for RNA pipelines only (construction.cpp:446).
-        ckw = {
-            "min_count": min_count,
-            "early_tip_clip": False,
-            "early_at_clip": False,
-        }
-        ckw.update(construction_kwargs(config_overlay))
-        mgr.add(
-            Construction(**ckw),
-            GenomicInfoFiller(),
-            # AddSimplificationStages order (pipeline.cpp:154-176):
-            # RawSimplification -> early gapcloser -> Simplification ->
-            # late gapcloser
-            RawSimplification(),
-            GapClosing("early"),
-            Simplification(apply_overlay(
-                mode_simplify_config(mode, read_length),
-                config_overlay, "simplification",
-            )),
-            GapClosing("late"),
-        )
+            # Early tip clipping exists in SPAdes to shrink the input of its
+            # (memory-bound, sequential) condenser (construction.cpp:448-449);
+            # here condensation is a native radix pass, so pre-condensation
+            # clipping buys nothing while graph-level tip clipping removes the
+            # same tips.  Off by default; a config overlay that turns it on
+            # meets construct_graph's NotImplementedError until it is ported.
+            # The A/T clipper runs for RNA pipelines only (construction.cpp:446).
+            ckw = {
+                "min_count": min_count,
+                "early_tip_clip": False,
+                "early_at_clip": mode in ("rna", "rnaviral"),
+            }
+            ckw.update(construction_kwargs(config_overlay))
+            mgr.add(
+                Construction(**ckw),
+                GenomicInfoFiller(),
+                # AddSimplificationStages order (pipeline.cpp:154-176):
+                # RawSimplification -> early gapcloser -> Simplification ->
+                # late gapcloser
+                RawSimplification(),
+                GapClosing("early"),
+                Simplification(apply_overlay(
+                    mode_simplify_config(mode, read_length),
+                    config_overlay, "simplification",
+                )),
+                GapClosing("late"),
+            )
+        if is_last and long_reads:
+            # long-read alignment feeds RR and closes remaining gaps
+            # (pipeline.cpp: HybridLibrariesAligning on the main iteration)
+            mgr.add(HybridAligning())
+        if is_last and mode in ("plasmid", "metaplasmid", "metaviral"):
+            # extract plasmid candidates before repeat resolution
+            # (pipeline.cpp plasmid branch: ChromosomeRemoval stage)
+            mgr.add(ChromosomeRemoval())
+        if is_last and mode in ("metaplasmid", "metaviral"):
+            # iterative coverage-cutoff extraction loop (AddMetaplasmidStages)
+            mgr.add(MetaplasmidExtraction())
         if is_last and mismatch_correction:
             # careful mode (or --mismatch-correction) polishes edge
             # sequences before output (pipeline.cpp gates MismatchCorrection
             # on cfg.correct_mismatches)
             mgr.add(MismatchCorrection())
+        if is_last and mode == "meta" and paired_libs and not disable_rr:
+            # two-step repeat resolution (pipeline.cpp:139-151): preliminary
+            # RR feeds its contigs back as trusted paths for the main pass
+            mgr.add(
+                PairInfoCount(preliminary=True),
+                DistanceEstimation(preliminary=True),
+                RepeatResolution(preliminary=True),
+                SecondPhaseSetup(),
+            )
         if is_last and not disable_rr:
             # repeat resolution runs on the main (last) iteration only
             # (pipeline.cpp: RepeatResolution gated on main_iteration,

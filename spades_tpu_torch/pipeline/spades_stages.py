@@ -1,11 +1,16 @@
 """Concrete per-K assembly stages (the spades-core stage list).
 
 Mirrors SPAdes' `src/projects/spades/pipeline.cpp:263-298` (stage list by
-mode).  Ported so far: the stages of a multicell / isolate assembly,
-Construction, GenomicInfoFiller, RawSimplification, GapClosing,
+mode).  Ported so far: the stages of a multicell / isolate / sc / sewage
+assembly, Construction, GenomicInfoFiller, RawSimplification, GapClosing,
 Simplification, MismatchCorrection (careful mode), PairInfoCount,
-DistanceEstimation, RepeatResolution and ContigOutput.  The mode-specific
-stages (hybrid, RNA, plasmid, meta's second phase, domains) are not here yet.
+DistanceEstimation, RepeatResolution and ContigOutput; LoadGraph
+(`--assembly-graph`); HybridAligning (PacBio, Nanopore and Sanger reads);
+ChromosomeRemoval and MetaplasmidExtraction (plasmid, metaplasmid,
+metaviral); and metaSPAdes' two-step repeat resolution (a preliminary
+PairInfoCount, DistanceEstimation and RepeatResolution, then
+SecondPhaseSetup).  The RNA stage (SSEdgeSplit), SeriesAnalysis and
+DomainAnalysis are not here yet.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ GAP_CLOSER_STATS: list[tuple[int, str, dict]] = []
 RR_STATS: list[tuple[int, str, dict]] = []
 # (k, bases fixed) trail of every MismatchCorrection run
 MISMATCH_STATS: list[tuple[int, int]] = []
+# (k, stage id, stats dict) trail of the mode stages: LoadGraph's edges,
+# HybridAligning's aligned reads, stored paths and closed gaps,
+# ChromosomeRemoval's removed edges, MetaplasmidExtraction's rounds and
+# SecondPhaseSetup's trusted contig paths
+MODE_STATS: list[tuple[int, str, dict]] = []
 
 
 class Construction(AssemblyStage):
@@ -206,6 +216,193 @@ class GapClosing(AssemblyStage):
         log.info("gap closer (%s): closed %d gaps", self.label, n)
 
 
+class HybridAligning(AssemblyStage):
+    """Long-read alignment + hybrid gap closing (hybrid_aligning.cpp:31-353).
+
+    Aligns PacBio/Nanopore reads to the graph, stores the edge paths for
+    repeat resolution, and splices dead-end gaps witnessed by long reads.
+    A splice changes the graph's arrays, so the next `ctx.mapping_engine()`
+    builds a new device index (its token changes)."""
+
+    name = "Hybrid Aligning"
+    id = "hybrid_aligning"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if not ctx.long_reads or ctx.graph is None or ctx.graph.num_edges == 0:
+            return
+        from ..alignment.long_read import (
+            align_long_reads,
+            build_long_read_storage,
+            close_gaps_with_long_reads,
+        )
+
+        t0 = time.perf_counter()
+        alignments = align_long_reads(ctx.graph, ctx.long_reads)
+        t_align = time.perf_counter() - t0
+        aligned = sum(1 for a in alignments if a.path)
+        ctx.long_read_storage = build_long_read_storage(ctx.graph, alignments)
+        t0 = time.perf_counter()
+        closed = close_gaps_with_long_reads(ctx.graph, alignments)
+        MODE_STATS.append((ctx.k, self.id, {
+            "reads": len(ctx.long_reads), "aligned": aligned,
+            "gap_records": sum(len(a.gaps) for a in alignments),
+            "paths": len(ctx.long_read_storage.paths), "closed": closed,
+            "align_s": t_align, "close_s": time.perf_counter() - t0,
+        }))
+        log.info(
+            "hybrid aligning: %d/%d long reads aligned, %d paths stored, %d gaps closed",
+            aligned, len(ctx.long_reads), len(ctx.long_read_storage.paths), closed,
+        )
+
+
+class ChromosomeRemoval(AssemblyStage):
+    """plasmid/metaplasmid chromosome extraction
+    (projects/spades/chromosome_removal.cpp)."""
+
+    name = "Chromosome Removal"
+    id = "chromosome_removal"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if ctx.graph is None or ctx.graph.num_edges == 0:
+            return
+        from ..graph.chromosome_remover import remove_chromosomal
+
+        before = len(ctx.graph.canonical_edge_ids())
+        n = remove_chromosomal(ctx.graph)
+        after = len(ctx.graph.canonical_edge_ids())
+        MODE_STATS.append((ctx.k, self.id, {
+            "edge_pairs_before": before, "removed": n, "edge_pairs_after": after,
+        }))
+        log.info("chromosome removal: %d edges removed, %d remain", n, after)
+
+
+class MetaplasmidExtraction(AssemblyStage):
+    """Iterative metaplasmid/metaviral extraction loop
+    (pipeline.cpp:84-96 AddMetaplasmidStages): coverage cutoffs grow
+    cov -> max(cov + additive_step, cov * relative_step) up to 600
+    (plasmid_mode.info:16-17 additive_step=5, relative_step=1.3); each round
+    emits uniform high-coverage components and strips the background."""
+
+    name = "Metaplasmid Extraction"
+    id = "metaplasmid_extraction"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if ctx.graph is None or ctx.graph.num_edges == 0:
+            log.info("metaplasmid loop: empty graph, nothing to extract")
+            return
+        from ..graph.chromosome_remover import metaplasmid_iteration
+
+        cov, add, mult, max_cov = 5.0, 5.0, 1.3, 600.0
+        total_components = 0
+        rounds = []
+        while cov < max_cov and ctx.graph.num_edges > 0:
+            comps, removed = metaplasmid_iteration(ctx.graph, cov)
+            rounds.append((int(cov), len(comps), removed))
+            if comps:
+                path = os.path.join(
+                    ctx.output_dir, f"components{int(cov):04d}.fasta"
+                )
+                with open(path, "w") as fh:
+                    for name, seq in comps:
+                        fh.write(f">{name}\n{seq}\n")
+                total_components += len(comps)
+            cov = max(cov + add, cov * mult)
+        MODE_STATS.append((ctx.k, self.id, {
+            "rounds": rounds, "component_contigs": total_components,
+            "edges_left": int(ctx.graph.num_edges),
+        }))
+        log.info(
+            "metaplasmid loop: %d component contigs emitted, %d edges remain",
+            total_components, ctx.graph.num_edges,
+        )
+
+
+class LoadGraph(AssemblyStage):
+    """Start from an existing GFA assembly graph instead of reads
+    (projects/spades/load_graph.cpp + --assembly-graph CLI option)."""
+
+    name = "Load Graph"
+    id = "load_graph"
+
+    def __init__(self, gfa_path: str):
+        self.gfa_path = gfa_path
+
+    def run(self, ctx: AssemblyContext) -> None:
+        from ..core import kmers as KK
+        from ..graph.from_gfa import graph_from_gfa
+        from ..io.gfa import read_gfa
+        from ..ops.count import KmerCounts
+
+        ctx.graph = graph_from_gfa(read_gfa(self.gfa_path), ctx.k)
+        # synthesize (k+1)-mer pseudo-counts from edge coverage so the
+        # coverage-model stage has a histogram to fit: zero (k+1)-mer words
+        # in the counts' layout, each edge's rounded coverage repeated once
+        # per k-mer of the edge, int64 as a counted table holds them
+        cov = np.maximum(np.round(ctx.graph.coverage()), 1).astype(np.int64)
+        lens = ctx.graph.edge_kmer_lengths()
+        counts = np.repeat(cov, np.maximum(lens, 1))
+        W = KK.kmer_words(ctx.k + 1)
+        ctx.p1_counts = KmerCounts(
+            k=ctx.k + 1,
+            words=np.zeros((len(counts), W), np.uint32),
+            counts=counts,
+        )
+        MODE_STATS.append((ctx.k, self.id, {
+            "edges": int(ctx.graph.num_edges), "vertices": int(ctx.graph.num_vertices),
+            "pseudo_counts": int(len(counts)),
+        }))
+        log.info(
+            "loaded graph from %s: %d edges, %d vertices",
+            self.gfa_path, ctx.graph.num_edges, ctx.graph.num_vertices,
+        )
+
+
+class SecondPhaseSetup(AssemblyStage):
+    """Two-step (meta) repeat resolution hand-off
+    (projects/spades/second_phase_setup.cpp + pipeline.cpp:139-151): preserve
+    the preliminary contigs as `first_pe_contigs.fasta`, clear the RR
+    products, and feed the contigs back as trusted paths for the main RR pass
+    (SPAdes appends them as a PathExtendContigs library).
+
+    The graph is not changed, so the main pass's PairInfoCount maps the
+    reads onto the device index the preliminary pass built (one index on the
+    card, the same mappings); the contigs are aligned on the host."""
+
+    name = "Second Phase Setup"
+    id = "second_phase_setup"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if not ctx.contigs or ctx.graph is None:
+            return
+        from ..alignment.long_read import align_long_reads, build_long_read_storage
+
+        write_contigs(
+            os.path.join(ctx.output_dir, "first_pe_contigs.fasta"), ctx.contigs
+        )
+        contig_seqs = [c.seq for c in ctx.contigs]
+        t0 = time.perf_counter()
+        alignments = align_long_reads(ctx.graph, contig_seqs)
+        storage = build_long_read_storage(ctx.graph, alignments)
+        if ctx.long_read_storage is not None:
+            for path, c in ctx.long_read_storage.paths.items():
+                storage.paths[path] = storage.paths.get(path, 0) + c
+        ctx.long_read_storage = storage
+        MODE_STATS.append((ctx.k, self.id, {
+            "first_pe_contigs": len(contig_seqs),
+            "aligned": sum(1 for a in alignments if a.path),
+            "trusted_paths": len(storage.paths), "align_s": time.perf_counter() - t0,
+        }))
+        # ClearRRIndicesAndPaths: drop preliminary RR products + indices
+        ctx.contigs, ctx.scaffolds = [], []
+        ctx.contig_paths, ctx.scaffold_paths = [], []
+        ctx.raw_pair_libs = []
+        ctx.paired_index = ctx.scaffold_index = ctx.mp_index = None
+        ctx.is_stats = None
+        log.info(
+            "second phase ready: %d trusted contig paths", len(storage.paths)
+        )
+
+
 def _assembly_stats(contigs) -> str:
     """N50/total/longest summary line (SPAdes' INFO telemetry and the
     QUAST metric surface)."""
@@ -298,6 +495,13 @@ class PairInfoCount(AssemblyStage):
 
     name = "Paired Information Counting"
     id = "pair_info_count"
+
+    def __init__(self, preliminary: bool = False):
+        if preliminary:
+            # meta's first pass has an id of its own, so its checkpoint and
+            # its `STAGE_TIMES` / `RR_STATS` rows are not the main pass's
+            self.name = "Preliminary Paired Information Counting"
+            self.id = "pair_info_count_preliminary"
 
     def run(self, ctx: AssemblyContext) -> None:
         ctx.raw_pair_libs = []
@@ -395,6 +599,11 @@ class DistanceEstimation(AssemblyStage):
     name = "Distance Estimation"
     id = "distance_estimation"
 
+    def __init__(self, preliminary: bool = False):
+        if preliminary:
+            self.name = "Preliminary Distance Estimation"
+            self.id = "distance_estimation_preliminary"
+
     def run(self, ctx: AssemblyContext) -> None:
         from ..paired.distance_estimation import estimate_distances
         from ..paired.paired_info import merge_paired_indices
@@ -458,6 +667,12 @@ class RepeatResolution(AssemblyStage):
 
     name = "Repeat Resolving"
     id = "repeat_resolving"
+
+    def __init__(self, preliminary: bool = False):
+        if preliminary:
+            self.name = "Preliminary Repeat Resolving"
+            self.id = "repeat_resolving_preliminary"
+        self.preliminary = preliminary
 
     def run(self, ctx: AssemblyContext) -> None:
         from ..io.contigs import Contig

@@ -35,7 +35,7 @@ from spades_tpu_torch.pipeline import spades_stages as t_stages
 from spades_tpu_torch.pipeline import stages as t_stage_rt
 from spades_tpu_torch.pipeline.construction import construct_graph as t_construct
 from spades_tpu_torch.tools import synthetic
-from tests.test_torch_pipeline import GRAPH_FIELDS, THRESHOLDS, assert_same_file
+from tests.test_torch_pipeline import GRAPH_FIELDS, THRESHOLDS, assert_same_file, one_torch_thread
 
 K = 21
 ACGT = np.frombuffer(b"ACGT", np.uint8)

@@ -21,7 +21,7 @@ from spades_tpu.pipeline import main as j_main
 from spades_tpu_torch.pipeline import executors as t_exec
 from spades_tpu_torch.pipeline import main as t_main
 from spades_tpu_torch.tools import synthetic
-from tests.test_torch_pipeline import assert_same_file
+from tests.test_torch_pipeline import assert_same_file, one_torch_thread
 
 FILES = ("contigs.fasta", "scaffolds.fasta", "contigs.paths", "scaffolds.paths",
          "assembly_graph.fastg", "assembly_graph_with_scaffolds.gfa", "run_spades.yaml",
@@ -132,22 +132,22 @@ def test_yaml_emitter_quotes_what_yaml_would_misread():
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--sc"], "A13"),                             # error correction is the default
-    (["--only-error-correction", "--metaviral"], "A13"),
-    (["--iontorrent", "--bio"], "A13"),
+    (["--rnaviral"], "A13e"),                      # error correction is the default
+    (["--only-error-correction", "--rna"], "A13e"),
+    (["--iontorrent", "--bio"], "A13f"),
     (["--only-assembler", "--read-cov-threshold", "3"], "A14"),
     (["--only-assembler", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--pacbio", "lr.fq"], "A13"),
-    (["--only-assembler", "--nanopore", "lr.fq"], "A13"),
-    (["--only-assembler", "--sanger", "lr.fq"], "A13"),
-    (["--only-assembler", "--fl-rna", "lr.fq"], "A13"),
-    (["--only-assembler", "--custom-hmms", "p.hmm"], "A13"),
-    (["--only-assembler", "--assembly-graph", "g.gfa"], "A13"),
-    (["--careful", "--corona"], "A13"),
-    (["--mismatch-correction", "--metaplasmid"], "A13"),
-    (["--only-assembler", "--meta"], "A13"),
-    (["--only-assembler", "--rna", "--ss", "fr"], "A13"),
-    (["--only-assembler", "--plasmid"], "A13"),
+    (["--only-assembler", "--rna", "--fl-rna", "lr.fq"], "A13e"),
+    (["--only-assembler", "--meta", "--series-analysis", "s.yaml"], "A13g"),
+    (["--only-assembler", "--nanopore", "lr.fq", "--custom-hmms", "p.hmm"], "A13f"),
+    (["--only-assembler", "--fl-rna", "lr.fq"], "A13e"),
+    (["--only-assembler", "--custom-hmms", "p.hmm"], "A13f"),
+    (["--only-assembler", "--assembly-graph", "g.gfa", "--rna"], "A13e"),
+    (["--careful", "--corona"], "A13f"),
+    (["--mismatch-correction", "--rnaviral"], "A13e"),
+    (["--only-assembler", "--meta", "--ss", "rf"], "A13e"),
+    (["--only-assembler", "--rna", "--ss", "fr"], "A13e"),
+    (["--only-assembler", "--plasmid", "--num-processes", "4"], "A15"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     out = tmp_path / "o"

@@ -26,7 +26,7 @@ from spades_tpu_torch.io.fastx import read_fastx
 from spades_tpu_torch.pipeline import main as t_main
 from spades_tpu_torch.tools import synthetic
 from tests.test_torch_cli import FILES
-from tests.test_torch_pipeline import assert_same_file
+from tests.test_torch_pipeline import assert_same_file, one_torch_thread
 
 COR = ("corrected/lib1_1.cor.fasta", "corrected/lib1_2.cor.fasta",
        "corrected/lib2_1.cor.fasta", "corrected/lib2_2.cor.fasta",

@@ -213,6 +213,48 @@ def test_run_assembly_cuda_matches_cpu(cuda, monkeypatch, tmp_path, k_list):
         assert filecmp.cmp(tmp_path / "cuda" / name, tmp_path / "cpu" / name, shallow=False)
 
 
+def test_meta_run_assembly_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
+    """metaSPAdes' two-step repeat resolution on the card: a small mock
+    community (four genomes at four depths, two sharing a segment) through
+    `run_assembly(mode="meta")` at K = 21, 33, 55, equal to the CPU path file
+    for file (`first_pe_contigs.fasta` included), with both PairInfoCount
+    passes mapping every read through the kernel."""
+    import collections
+    import filecmp
+    import os
+
+    from spades_tpu_torch.pipeline.run import run_assembly
+    from spades_tpu_torch.pipeline.spades_stages import RR_STATS
+    from spades_tpu_torch.tools import synthetic
+
+    for name, value in (("SPADES_HOST_COUNT_WINDOWS", "1"), ("SPADES_DEVICE_MAP_READS", "1"),
+                        ("SPADES_DEVICE_INDEX_POOL", "1"), ("SPADES_MAP_SUBCHUNK", "4096")):
+        monkeypatch.setenv(name, value)
+    _g, r1, r2, _origin = synthetic.make_community([24_000, 18_000, 12_000, 6_000],
+                                                   [60, 25, 12, 6], 150, 0.003, 3, shared=2_000)
+    lefts, rights = list(r1), list(r2)
+    shapes = {}
+    for dev in ("cuda", "cpu"):
+        RR_STATS.clear()
+        CK.canonical_window_keys.launches = 0
+        CK.canonical_window_keys.launch_shapes = collections.Counter()
+        run_assembly(lefts + rights, [21, 33, 55], str(tmp_path / dev), mode="meta",
+                     paired_libs=[(lefts, rights)], read_length=150, device=dev,
+                     checkpoints="none")
+        shapes[dev] = CK.canonical_window_keys.launch_shapes
+        CK.canonical_window_keys.launch_shapes = None
+        assert [s for _k, s, _st in RR_STATS][::3] == ["pair_info_count_preliminary",
+                                                       "pair_info_count"]
+    assert sum(shapes["cpu"].values()) == 0
+    assert any(strand for (_R, _L, _k, strand) in shapes["cuda"])
+    names = []
+    for d, _dirs, files in os.walk(tmp_path / "cpu"):
+        names += [os.path.relpath(os.path.join(d, f), tmp_path / "cpu") for f in files]
+    assert os.path.join("K55", "first_pe_contigs.fasta") in names
+    for rel in names:
+        assert filecmp.cmp(tmp_path / "cuda" / rel, tmp_path / "cpu" / rel, shallow=False), rel
+
+
 @pytest.mark.parametrize("with_quals", [False, True])
 def test_correct_reads_cuda_matches_cpu(cuda, monkeypatch, with_quals):
     from spades_tpu_torch.hammer import hammer as H

@@ -29,6 +29,7 @@ from spades_tpu_torch.hammer import hammer as TH
 from spades_tpu_torch.hammer import ionhammer as TI
 from spades_tpu_torch.ops.count import count_sequences as t_count
 from tests.test_torch_construction import REPO, _imported_modules
+from tests.test_torch_pipeline import one_torch_thread
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 

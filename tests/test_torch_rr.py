@@ -37,7 +37,7 @@ from spades_tpu_torch.pipeline import stages as t_stage_rt
 from spades_tpu_torch.pipeline.stages import AssemblyContext as TContext
 from tests import test_scale_e2e as scale_e2e
 from tests.test_torch_construction import REPO, _imported_modules
-from tests.test_torch_pipeline import GRAPH_FIELDS, THRESHOLDS, assert_same_file
+from tests.test_torch_pipeline import GRAPH_FIELDS, THRESHOLDS, assert_same_file, one_torch_thread
 
 OUTPUTS = ("contigs.fasta", "scaffolds.fasta", "contigs.paths", "scaffolds.paths",
            "assembly_graph.fastg", "assembly_graph_with_scaffolds.gfa")
@@ -332,8 +332,29 @@ def test_mate_pair_library_reaches_the_scaffold_graph(mate_pairs):
 # -- what stays refused -------------------------------------------------------------
 
 def test_long_read_checkpoints_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_serialize.load_long_reads(str(tmp_path / "long_reads.npz"))
+    """A missing long-read archive is refused with the JAX package's error."""
+    from spades_tpu.graph import serialize as j_serialize
+
+    missing = str(tmp_path / "long_reads.npz")
+    with pytest.raises(FileNotFoundError):
+        j_serialize.load_long_reads(missing)
+    with pytest.raises(FileNotFoundError):
+        t_serialize.load_long_reads(missing)
+
+
+def test_long_read_checkpoints_round_trip(tmp_path):
+    """A saved long-read storage loads to the JAX package's storage, with the
+    paths in their order of insertion."""
+    from spades_tpu.graph import serialize as j_serialize
+    from spades_tpu_torch.alignment.long_read import LongReadStorage
+
+    path = str(tmp_path / "long_reads.npz")
+    st = LongReadStorage()
+    for p in ([5, 1, 2], [3, 4], [5, 1, 2]):
+        st.add(p)
+    t_serialize.save_long_reads(path, st)
+    assert list(t_serialize.load_long_reads(path).paths.items()) == \
+        list(j_serialize.load_long_reads(path).paths.items()) == [((5, 1, 2), 2), ((3, 4), 1)]
 
 
 def test_import_scan_covers_the_new_modules():
