@@ -5,7 +5,8 @@ state: counted (k+1)-mers, the extension index, the condensed graph, the
 edge k-mer index of the read mapper, and what the stages of an assembly hand
 on (the coverage model's `GenomicInfo`, a `SimplifyConfig`, the `KmerMapper`
 of glued k-mers, contigs, and for repeat resolution the paired indices, the
-insert-size estimate and the paths).
+insert-size estimate and the paths; a profile HMM of the domain stage and
+the k-mer profiles of series analysis).
 Each function takes that state as a dict of numpy arrays and scalars, as
 `dataclasses.asdict` gives it for `spades_tpu`'s `KmerCounts`,
 `ExtensionIndex`, `CondensedGraph`, `EdgeIndex`, `GenomicInfo` or
@@ -21,7 +22,9 @@ from .alignment.mapper import EdgeIndex
 from .graph.coverage_model import GenomicInfo
 from .graph.graph import CondensedGraph
 from .graph.simplify import SimplifyConfig
+from .hmm.io import ProfileHMM
 from .io.contigs import Contig
+from .mts.multiplicity import KmerProfiles
 from .ops.count import KmerCounts
 from .ops.extension import ExtensionIndex
 from .paired.paired_info import InsertSizeStats, PairedIndex
@@ -135,3 +138,23 @@ def paths_from_lists(records) -> list[Path]:
     """Paths from (edges, gaps) pairs of int lists."""
     return [Path([int(e) for e in edges], [int(x) for x in gaps])
             for edges, gaps in records]
+
+
+def profile_hmm_from_arrays(d: dict) -> ProfileHMM:
+    compo = d.get("compo")
+    return ProfileHMM(
+        name=str(d["name"]), length=int(d["length"]), alphabet=str(d["alphabet"]),
+        K=int(d["K"]),
+        match_emit=np.ascontiguousarray(d["match_emit"], np.float64),
+        insert_emit=np.ascontiguousarray(d["insert_emit"], np.float64),
+        trans=np.ascontiguousarray(d["trans"], np.float64),
+        compo=None if compo is None else np.ascontiguousarray(compo, np.float64),
+    )
+
+
+def kmer_profiles_from_arrays(d: dict) -> KmerProfiles:
+    return KmerProfiles(
+        k=int(d["k"]),
+        words=np.ascontiguousarray(d["words"], np.uint32),
+        mpl=np.ascontiguousarray(d["mpl"], np.uint16),
+    )

@@ -405,6 +405,78 @@ def _rows_u64(rows: np.ndarray, w0: int, w1: int) -> np.ndarray:
     return hi
 
 
+class RowIndex:
+    """A sorted unique array of packed k-mer rows with its search keys built
+    once, for a caller that looks many batches of rows up in the same array
+    (`find` answers as `searchsorted_rows` does)."""
+
+    def __init__(self, haystack: np.ndarray):
+        self.haystack = haystack
+        self.W = haystack.shape[1]
+        self._hb = None
+        if haystack.shape[0] == 0:
+            return
+        if self.W <= 2:
+            self.h = _rows_u64(haystack, 0, 2)
+        elif self.W <= 4:
+            self.h1 = _rows_u64(haystack, 0, 2)
+            self.h2 = _rows_u64(haystack, 2, 4)
+        else:
+            self._bytes()
+
+    def _bytes(self) -> np.ndarray:
+        if self._hb is None:
+            self._hb = np.ascontiguousarray(
+                self.haystack.astype(">u4")).view(f"V{4 * self.W}").ravel()
+        return self._hb
+
+    def find(self, needles: np.ndarray) -> np.ndarray:
+        """Index of each needle row in the haystack, or -1 where absent."""
+        W = self.W
+        if self.haystack.shape[0] == 0:
+            return np.full(needles.shape[0], -1, np.int64)
+        if needles.shape[0] == 0:
+            return np.zeros(0, np.int64)
+        if W <= 2:
+            h = self.h
+            n = _rows_u64(needles, 0, 2)
+            pos = np.searchsorted(h, n)
+            pos_c = np.minimum(pos, len(h) - 1)
+            return np.where(h[pos_c] == n, pos_c, -1)
+        if W <= 4:
+            h1, h2 = self.h1, self.h2
+            n1 = _rows_u64(needles, 0, 2)
+            n2 = _rows_u64(needles, 2, 4)
+            H = len(h1)
+            lo = np.searchsorted(h1, n1, side="left")
+            out = np.full(len(n1), -1, np.int64)
+            # needles whose prefix is present, scanned along their prefix
+            # block one row per step (only those still pending)
+            rem = np.flatnonzero(h1[np.minimum(lo, H - 1)] == n1)
+            j = 0
+            while rem.size and j < 256:
+                cand = lo[rem] + j
+                c = np.minimum(cand, H - 1)
+                still = (cand < H) & (h1[c] == n1[rem])
+                hit = still & (h2[c] == n2[rem])
+                out[rem[hit]] = cand[hit]
+                rem = rem[still & ~hit]
+                j += 1
+            if rem.size:                      # adversarially long prefix blocks
+                hb = self._bytes()
+                nb = np.ascontiguousarray(needles[rem].astype(">u4")).view(f"V{4*W}").ravel()
+                pos = np.searchsorted(hb, nb)
+                pc = np.minimum(pos, len(hb) - 1)
+                out[rem] = np.where(hb[pc] == nb, pc, -1)
+            return out
+        hb = self._bytes()
+        nb = np.ascontiguousarray(needles.astype(">u4")).view(f"V{4*W}").ravel()
+        pos = np.searchsorted(hb, nb)
+        pos_c = np.minimum(pos, len(hb) - 1)
+        found = hb[pos_c] == nb
+        return np.where(found, pos_c, -1)
+
+
 def searchsorted_rows(haystack: np.ndarray, needles: np.ndarray) -> np.ndarray:
     """Host-side lookup of packed k-mer rows in a sorted unique array.
 
@@ -416,47 +488,4 @@ def searchsorted_rows(haystack: np.ndarray, needles: np.ndarray) -> np.ndarray:
     uint64 suffix within each block).  Wider rows use a void-dtype memcmp
     search.
     """
-    if haystack.shape[0] == 0:
-        return np.full(needles.shape[0], -1, np.int64)
-    if needles.shape[0] == 0:
-        return np.zeros(0, np.int64)
-    W = haystack.shape[1]
-    if W <= 2:
-        h = _rows_u64(haystack, 0, 2)
-        n = _rows_u64(needles, 0, 2)
-        pos = np.searchsorted(h, n)
-        pos_c = np.minimum(pos, len(h) - 1)
-        return np.where(h[pos_c] == n, pos_c, -1)
-    if W <= 4:
-        h1 = _rows_u64(haystack, 0, 2)
-        h2 = _rows_u64(haystack, 2, 4)
-        n1 = _rows_u64(needles, 0, 2)
-        n2 = _rows_u64(needles, 2, 4)
-        H = len(h1)
-        lo = np.searchsorted(h1, n1, side="left")
-        out = np.full(len(n1), -1, np.int64)
-        cand = np.minimum(lo, H - 1)
-        pending = h1[cand] == n1          # prefix present at all
-        j = 0
-        while pending.any() and j < 256:
-            cand = lo + j
-            c = np.minimum(cand, H - 1)
-            still = pending & (cand < H) & (h1[c] == n1)
-            hit = still & (h2[c] == n2)
-            out[hit] = cand[hit]
-            pending = still & ~hit
-            j += 1
-        if pending.any():                 # adversarially long prefix blocks
-            rem = np.flatnonzero(pending)
-            hb = np.ascontiguousarray(haystack.astype(">u4")).view(f"V{4*W}").ravel()
-            nb = np.ascontiguousarray(needles[rem].astype(">u4")).view(f"V{4*W}").ravel()
-            pos = np.searchsorted(hb, nb)
-            pc = np.minimum(pos, len(hb) - 1)
-            out[rem] = np.where(hb[pc] == nb, pc, -1)
-        return out
-    hb = np.ascontiguousarray(haystack.astype(">u4")).view(f"V{4*W}").ravel()
-    nb = np.ascontiguousarray(needles.astype(">u4")).view(f"V{4*W}").ravel()
-    pos = np.searchsorted(hb, nb)
-    pos_c = np.minimum(pos, len(hb) - 1)
-    found = hb[pos_c] == nb
-    return np.where(found, pos_c, -1)
+    return RowIndex(haystack).find(needles)

@@ -17,12 +17,12 @@ Host numpy with the native fast path, as in `spades_tpu.ops.extension`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..core import kmers as K
-from .count import KmerCounts, _lexsort_rows, searchsorted_rows
+from .count import KmerCounts, RowIndex, _lexsort_rows
 
 NT_COMP = np.array([3, 2, 1, 0], np.uint8)
 POPCOUNT4 = np.array([bin(i).count("1") for i in range(16)], np.uint8)
@@ -76,6 +76,9 @@ class ExtensionIndex:
     suf_idx: np.ndarray | None = None   # (P,) int64
     pref_rc: np.ndarray | None = None   # (P,) uint8
     suf_rc: np.ndarray | None = None    # (P,) uint8
+    # search keys of `kmers`, built at the first lookup (the k-mers of an
+    # index never change; the clippers look up millions of rows per step)
+    _rows: RowIndex | None = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def num_kmers(self) -> int:
@@ -83,13 +86,36 @@ class ExtensionIndex:
 
     def lookup(self, words: np.ndarray) -> np.ndarray:
         """Canonical k-mer rows -> dense index (-1 if absent)."""
-        return searchsorted_rows(self.kmers, words)
+        if self._rows is None:
+            self._rows = RowIndex(self.kmers)
+        return self._rows.find(words)
 
     def outdeg(self) -> np.ndarray:
         return POPCOUNT4[self.out_mask]
 
     def indeg(self) -> np.ndarray:
         return POPCOUNT4[self.in_mask]
+
+    # -- mask-level deletion API (DeBruijnExtensionIndex::DeleteOutgoing /
+    # DeleteIncoming / IsolateVertex, kmer_extension_index.hpp:62) ----------
+
+    def isolate(self, rows: np.ndarray) -> None:
+        """Clear both masks of the given canonical rows (IsolateVertex)."""
+        from .early_clip import isolate_rows
+
+        isolate_rows(self, rows)
+
+    def delete_outgoing(self, idx: np.ndarray, o: np.ndarray, c: np.ndarray) -> None:
+        """Batched DeleteOutgoing in the directed (row, orient) view."""
+        from .early_clip import delete_out_dir
+
+        delete_out_dir(self, idx, o, c)
+
+    def delete_incoming(self, idx: np.ndarray, o: np.ndarray, c: np.ndarray) -> None:
+        """Batched DeleteIncoming in the directed (row, orient) view."""
+        from .early_clip import delete_in_dir
+
+        delete_in_dir(self, idx, o, c)
 
 
 def build_extension_index(p1: KmerCounts) -> ExtensionIndex:

@@ -17,6 +17,7 @@ from ..core.reads import batch_iter, chop_sequences
 from ..graph.graph import CondensedGraph
 from ..ops import condense as _condense
 from ..ops import count as _count
+from ..ops import early_clip as _early
 from ..ops import extension as _ext
 
 
@@ -27,7 +28,8 @@ class ConstructionResult:
     index: _ext.ExtensionIndex
     # Per-phase wall seconds: count_reads' keys (device_s, device_first_s,
     # pull_s, merge_s, host_s, n_batches) plus extra_count_s (two-pass
-    # structure counting), filter_s, ext_build_s and condense_s.
+    # structure counting), filter_s, ext_build_s, early_clip_s (when a
+    # clipper ran) and condense_s.
     timings: dict = field(default_factory=dict)
 
 
@@ -52,15 +54,15 @@ def construct_graph(
     packed once for the whole run; when given, `sequences` is not read.
     device: where counting runs (None: the CUDA card; see `resolve_device`).
 
-    early_tip_clip / early_at_clip (the pre-condensation clippers of SPAdes'
-    construction.cpp:446-450) are not ported yet and raise
-    NotImplementedError; early_tc_length_bound and read_length only
-    parameterize them.
+    early_tip_clip / early_at_clip: run the pre-condensation clippers on the
+    extension index (SPAdes' construction.cpp:446-450: the EarlyATClipper
+    for RNA pipelines, the EarlyTipClipper when the gap closer is off); the
+    tip length bound defaults to read_length - k (construction.cpp:297-300).
+    Both counting branches meet before the index build, so the clippers see
+    the same masks either way; their time is `timings["early_clip_s"]`.
     """
     if k % 2 == 0:
         raise ValueError("k must be odd")
-    if early_tip_clip or early_at_clip:
-        raise NotImplementedError("early tip / A-T clipping is not ported yet (ROADMAP A13e)")
     dev = resolve_device(device)
     tm: dict = {}
     k1 = k + 1
@@ -98,6 +100,17 @@ def construct_graph(
     t0 = time.perf_counter()
     index = _ext.build_extension_index(p1)
     tm["ext_build_s"] = time.perf_counter() - t0
+    if early_at_clip or early_tip_clip:
+        t0 = time.perf_counter()
+        if early_at_clip:
+            _early.remove_at_edges(index)
+            _early.remove_at_tips(index)
+        if early_tip_clip:
+            bound = early_tc_length_bound
+            if bound is None:
+                bound = (read_length - k) if read_length and read_length > k else k
+            _early.clip_tips_early(index, bound)
+        tm["early_clip_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     graph = _condense.condense(index, p1, device=dev)
     tm["condense_s"] = time.perf_counter() - t0

@@ -11,15 +11,17 @@ per-K state is checkpointed through the stage manager.
 
     python -m spades_tpu_torch.pipeline.main -1 r1.fq -2 r2.fq -o out
 
-Ported so far: isolate, multicell, `--sc`, `--sewage`, `--meta`,
-`--plasmid`, `--metaplasmid` and `--metaviral` assembly of short reads, with
-read error correction (BayesHammer by default, IonHammer under
+Every assembly mode runs: isolate, multicell, `--sc`, `--sewage`, `--meta`,
+`--plasmid`, `--metaplasmid`, `--metaviral`, `--rna` (with `--ss fr|rf` and
+`--fl-rna`), `--rnaviral`, `--bio` and `--corona` (with `--custom-hmms`),
+with read error correction (BayesHammer by default, IonHammer under
 `--iontorrent`; `--only-assembler` skips it, `--only-error-correction` stops
-after it), with or without repeat resolution, careful mode (`--careful`,
-`--mismatch-correction`), long reads (`--pacbio`, `--nanopore`, `--sanger`)
-and a GFA start (`--assembly-graph`).  Every option whose code is not ported
-yet raises `NotImplementedError` naming the ROADMAP item that ports it;
-nothing is skipped silently.
+after it; rna, corona and sewage skip it), with or without repeat resolution,
+careful mode (`--careful`, `--mismatch-correction`), long reads (`--pacbio`,
+`--nanopore`, `--sanger`), a GFA start (`--assembly-graph`) and
+`--series-analysis`.  The two options whose code is not ported yet
+(`--read-cov-threshold`, `--num-processes`) raise `NotImplementedError`
+naming the ROADMAP item that ports them; nothing is skipped silently.
 """
 from __future__ import annotations
 
@@ -109,13 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
     inp.add_argument("--nanopore", action="append", default=[], help="Oxford Nanopore reads")
     inp.add_argument("--sanger", action="append", default=[], help="Sanger reads (treated as accurate long reads)")
     inp.add_argument("--fl-rna", dest="fl_rna", action="append", default=[],
-                     help="full-length transcripts (rna mode; not ported yet)")
+                     help="full-length transcripts (rna mode: trusted transcript paths)")
     inp.add_argument("--trusted-contigs", action="append", default=[], help="trusted contigs")
     inp.add_argument("--untrusted-contigs", action="append", default=[], help="untrusted contigs")
     inp.add_argument("--dataset", help="dataset description in YAML (needs PyYAML)")
     inp.add_argument("--assembly-graph", dest="assembly_graph", default=None,
                      help="start from an existing assembly graph (GFA) instead of constructing one")
-    inp.add_argument("--custom-hmms", action="append", default=[], help="profile HMM file(s) for bio/corona modes (not ported yet)")
+    inp.add_argument("--custom-hmms", action="append", default=[], help="profile HMM file(s) for domain-guided modes (bio/corona)")
     inp.add_argument("--iontorrent", action="store_true", help="IonTorrent data: homopolymer-space error correction (ionhammer)")
     inp.add_argument("--test", action="store_true", help="run on SPAdes' bundled E. coli 1K dataset and check the result")
 
@@ -196,25 +198,15 @@ def detect_mode(args) -> str:
     return "multicell"
 
 
-def refuse_unported(args, mode: str) -> None:
+def refuse_unported(args) -> None:
     """Raise `NotImplementedError` for every option whose code is not ported
-    yet, naming the ROADMAP item that ports it (the run-level arguments are
-    checked again by `run_assembly`)."""
-    from .run import _refuse_unported
-
+    yet, naming the ROADMAP item that ports it."""
     if args.read_cov_threshold:
         raise NotImplementedError(
             "--read-cov-threshold (tools/read_filter.py) is not ported yet (ROADMAP A14)")
     if args.num_processes > 1:
         raise NotImplementedError(
             "--num-processes > 1 (multi-process runs) is not ported yet (ROADMAP A15)")
-    if args.fl_rna:
-        raise NotImplementedError(
-            "--fl-rna (full-length transcripts, rna mode) is not ported yet (ROADMAP A13e)")
-    if args.custom_hmms:
-        raise NotImplementedError("--custom-hmms is not ported yet (ROADMAP A13f)")
-    _refuse_unported(mode=mode, series_analysis=args.series_analysis, ss=args.ss,
-                     hmm_profiles=None)
 
 
 def setup_logging(output_dir: str) -> None:
@@ -268,7 +260,7 @@ def main(argv=None) -> int:
         print("error: no input reads specified", file=sys.stderr)
         return 64
     mode = detect_mode(args)
-    refuse_unported(args, mode)
+    refuse_unported(args)
     device = resolve_device(args.device)
     if args.tmp_dir:
         import tempfile
@@ -375,6 +367,8 @@ def main(argv=None) -> int:
         dataset.libraries.append(SequencingLibrary(type="nanopore", left=_seqs(p)))
     for p in args.sanger:
         dataset.libraries.append(SequencingLibrary(type="sanger", left=_seqs(p)))
+    for p in args.fl_rna:
+        dataset.libraries.append(SequencingLibrary(type="fl-rna", left=_seqs(p)))
     for p in args.trusted_contigs:
         dataset.libraries.append(SequencingLibrary(type="trusted-contigs", left=_seqs(p)))
     for p in args.untrusted_contigs:
@@ -473,11 +467,21 @@ def main(argv=None) -> int:
     if cut_src not in ("off", "auto"):
         cov_cutoff = int(float(cut_src))
 
+    hmm_profiles = []
+    for hf in args.custom_hmms:
+        from ..hmm import read_hmm
+
+        hmm_profiles += read_hmm(hf)
+    if hmm_profiles:
+        log.info("loaded %d HMM profiles", len(hmm_profiles))
+
     # executor artifacts: run_spades.yaml / run_spades.sh (+ sbatch script)
     from .executors import dump_sh, dump_slurm, dump_yaml, pipeline_description
 
     user_argv = list(argv if argv is not None else sys.argv[1:])
-    cmds = pipeline_description(k_list, mode, args.careful, bool(long_reads), False)
+    cmds = pipeline_description(
+        k_list, mode, args.careful, bool(long_reads), bool(hmm_profiles)
+    )
     dump_yaml(os.path.join(args.output_dir, "run_spades.yaml"), cmds)
     dump_sh(os.path.join(args.output_dir, "run_spades.sh"), user_argv)
     if args.grid_engine == "slurm":
@@ -515,6 +519,7 @@ def main(argv=None) -> int:
         checkpoints=args.checkpoints,
         restart_from=restart,
         careful=args.careful,
+        hmm_profiles=hmm_profiles,
         ss=args.ss,
         series_analysis=args.series_analysis,
         assembly_graph=args.assembly_graph,

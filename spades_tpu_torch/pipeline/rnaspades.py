@@ -1,0 +1,7 @@
+"""`rnaspades.py` wrapper — see `spades_tpu_torch.pipeline.wrappers`."""
+import sys
+
+from .wrappers import rnaspades as main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,16 +4,18 @@ The outer loop mirrors `spades_pipeline/stages/spades_stage.py:282-396`
 (per-K IterationStage chain with additional_contigs feed-forward, then final
 copy) on top of the inner stage manager (pipeline/stages.py).
 
-Ported so far: the modes `multicell`, `isolate` (no stage branches on
-it), `sc` and `sewage` (they change only the simplification config and the
-coverage model's branch, or skip error correction before the run), `meta`
-(metaSPAdes' two-step repeat resolution), `plasmid`, `metaplasmid` and
-`metaviral` (chromosome removal and the metaplasmid loop); long reads
-(`long_reads`: HybridAligning) and a GFA start (`assembly_graph`:
-LoadGraph); mismatch correction on the last K under `careful` /
+Every mode of the JAX package runs: `multicell`, `isolate` (no stage
+branches on it), `sc` and `sewage` (they change only the simplification
+config and the coverage model's branch, or skip error correction before the
+run), `meta` (metaSPAdes' two-step repeat resolution), `plasmid`,
+`metaplasmid` and `metaviral` (chromosome removal and the metaplasmid loop),
+`rna` and `rnaviral` (the early A/T clipper; `ss`: SSEdgeSplit at every K in
+`rna`), `bio` and `corona` (DomainAnalysis over `hmm_profiles`, which any
+mode may also be given); long reads (`long_reads`: HybridAligning), a GFA
+start (`assembly_graph`: LoadGraph) and `series_analysis` (SeriesAnalysis on
+the last K); mismatch correction on the last K under `careful` /
 `mismatch_correction`, and repeat resolution on the last K unless
-`disable_rr`.  Every argument that asks for a stage not ported yet raises
-`NotImplementedError` naming its ROADMAP item; nothing is skipped.
+`disable_rr`.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from .spades_stages import (
     Construction,
     ContigOutput,
     DistanceEstimation,
+    DomainAnalysis,
     GapClosing,
     GenomicInfoFiller,
     HybridAligning,
@@ -41,7 +44,9 @@ from .spades_stages import (
     RawSimplification,
     RepeatResolution,
     SecondPhaseSetup,
+    SeriesAnalysis,
     Simplification,
+    SSEdgeSplit,
 )
 from .stages import AssemblyContext, SavesPolicy, StageManager
 
@@ -77,25 +82,6 @@ def mode_simplify_config(mode: str, read_length: int) -> SimplifyConfig:
     return cfg
 
 
-# modes whose stages are not ported yet, with the ROADMAP item of each
-UNPORTED_MODES = {
-    "rna": "A13e", "rnaviral": "A13e",     # early A/T clipping, SSEdgeSplit
-    "bio": "A13f", "corona": "A13f",       # DomainAnalysis (hmm/)
-}
-
-
-def _refuse_unported(*, mode, series_analysis, ss, hmm_profiles) -> None:
-    """Raise for every argument whose stages are not ported yet, naming the
-    ROADMAP item that ports them."""
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP {UNPORTED_MODES[mode]})")
-    for name, value, item in (("series_analysis", series_analysis, "A13g"),
-                              ("ss", ss, "A13e"), ("hmm_profiles", hmm_profiles, "A13f")):
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
-
-
 def run_assembly(
     reads: list[str],
     k_list: list[int],
@@ -128,8 +114,6 @@ def run_assembly(
     # mismatch-correction forces the corrector even outside --careful)
     if mismatch_correction is None:
         mismatch_correction = careful
-    _refuse_unported(mode=mode, series_analysis=series_analysis, ss=ss,
-                     hmm_profiles=hmm_profiles)
     if not k_list:
         raise ValueError("k_list is empty")
     dev = resolve_device(device)
@@ -186,6 +170,14 @@ def run_assembly(
                 count_store = ReadStore(chunks, concat_len)
     if count_store is None and reads:
         count_store = ReadStore.build(reads)
+    ss_store = None
+    if mode == "rna" and ss and reads:
+        # the stranded library packed once for every K's two SS mapping
+        # passes (reads of k bases or fewer map nowhere, so the whole set
+        # serves every K)
+        from ..alignment.ss_coverage import read_store
+
+        ss_store = read_store(reads, rf=ss == "rf")
 
     # restart addressing: "k<K>:<stage>", bare "<stage>" (first K), or "last"
     restart_k = None
@@ -210,6 +202,7 @@ def run_assembly(
             mode=mode,
             device=dev,
         )
+        ctx.hmm_profiles = list(hmm_profiles or [])
         ctx.config_overlay = config_overlay
         ctx.read_store = count_store
         ctx.paired_stores = paired_stores
@@ -226,8 +219,7 @@ def run_assembly(
             # (memory-bound, sequential) condenser (construction.cpp:448-449);
             # here condensation is a native radix pass, so pre-condensation
             # clipping buys nothing while graph-level tip clipping removes the
-            # same tips.  Off by default; a config overlay that turns it on
-            # meets construct_graph's NotImplementedError until it is ported.
+            # same tips.  Off by default; the config overlay can turn it on.
             # The A/T clipper runs for RNA pipelines only (construction.cpp:446).
             ckw = {
                 "min_count": min_count,
@@ -249,6 +241,15 @@ def run_assembly(
                 )),
                 GapClosing("late"),
             )
+        if is_last and series_analysis:
+            # meta mode multi-sample series analysis (pipeline.cpp gates on
+            # cfg.series_analysis being set)
+            mgr.add(SeriesAnalysis(series_analysis))
+        if mode == "rna" and ss:
+            # strand-specific transcript-boundary splitting at every K
+            # (pipeline.cpp rna branch: SSEdgeSplit stage); `ss` outside rna
+            # mode is ignored, as in the JAX package
+            mgr.add(SSEdgeSplit(ss, store=ss_store))
         if is_last and long_reads:
             # long-read alignment feeds RR and closes remaining gaps
             # (pipeline.cpp: HybridLibrariesAligning on the main iteration)
@@ -279,6 +280,9 @@ def run_assembly(
             # (pipeline.cpp: RepeatResolution gated on main_iteration,
             # preceded by PairInfoCount + DistanceEstimation)
             mgr.add(PairInfoCount(), DistanceEstimation(), RepeatResolution())
+        if is_last and (hmm_profiles or mode in ("bio", "corona")):
+            # domain extraction / HMM-guided analysis (bgc + corona modes)
+            mgr.add(DomainAnalysis())
         mgr.add(ContigOutput(gfa_version=gfa_version))
         start = None
         if restart_from == "last":

@@ -9,8 +9,9 @@ DistanceEstimation, RepeatResolution and ContigOutput; LoadGraph
 ChromosomeRemoval and MetaplasmidExtraction (plasmid, metaplasmid,
 metaviral); and metaSPAdes' two-step repeat resolution (a preliminary
 PairInfoCount, DistanceEstimation and RepeatResolution, then
-SecondPhaseSetup).  The RNA stage (SSEdgeSplit), SeriesAnalysis and
-DomainAnalysis are not here yet.
+SecondPhaseSetup); SSEdgeSplit (rnaSPAdes' strand-specific splitter),
+SeriesAnalysis (`--series-analysis`) and DomainAnalysis (bio / corona and
+`--custom-hmms`).
 """
 from __future__ import annotations
 
@@ -44,8 +45,9 @@ RR_STATS: list[tuple[int, str, dict]] = []
 MISMATCH_STATS: list[tuple[int, int]] = []
 # (k, stage id, stats dict) trail of the mode stages: LoadGraph's edges,
 # HybridAligning's aligned reads, stored paths and closed gaps,
-# ChromosomeRemoval's removed edges, MetaplasmidExtraction's rounds and
-# SecondPhaseSetup's trusted contig paths
+# ChromosomeRemoval's removed edges, MetaplasmidExtraction's rounds,
+# SecondPhaseSetup's trusted contig paths, SSEdgeSplit's split edges and
+# mapping-pass times, and DomainAnalysis's hits and per-profile DP times
 MODE_STATS: list[tuple[int, str, dict]] = []
 
 
@@ -182,6 +184,76 @@ class RawSimplification(AssemblyStage):
             "raw simplification: %d edges (tips=%d ec=%d)",
             len(ctx.graph.canonical_edge_ids()), stats.tips, stats.ec,
         )
+
+
+class SSEdgeSplit(AssemblyStage):
+    """Strand-specific edge splitting for stranded RNA libraries
+    (stages/ss_edge_split.cpp + alignment/rna/ss_coverage.hpp
+    SSCoverageSplitter): split edges where sense and antisense transcript
+    coverage profiles cross (tail-to-tail transcript boundaries).
+
+    Both mapping passes run on the device through the run's MappingEngine:
+    the binned fill on the graph before the splits, the per-edge
+    strand-specific coverage on a fresh engine of the split graph (which
+    PairInfoCount then reuses).  `store` is the library packed once for the
+    run (`ss_coverage.read_store`); None packs `ctx.reads` here."""
+
+    name = "SS Edge Splitting"
+    id = "ss_edge_split"
+
+    def __init__(self, ss_type: str = "fr", store=None):
+        self.ss_type = ss_type
+        self.store = store
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if ctx.graph is None or ctx.graph.num_edges == 0 or not ctx.reads:
+            return
+        if ctx.read_length < ctx.k:
+            log.info("reads are too short for SS coverage splitter")
+            return
+        from ..alignment.ss_coverage import SSCoverageSplitter, fill_ss_coverage, read_store
+
+        rf = self.ss_type == "rf"
+        store = self.store if self.store is not None else read_store(ctx.reads, rf=rf)
+        min_edge_len = max(200, 3 * 50)
+        splitter = SSCoverageSplitter(ctx.graph, min_edge_len=min_edge_len)
+        t0 = time.perf_counter()
+        splitter.fill(store, engine=ctx.mapping_engine())
+        fill_s = time.perf_counter() - t0
+        n = splitter.split_edges()
+        log.info("ss edge splitter: split %d edges", n)
+        if n:
+            # the split edges are new ids of a changed graph: drop the index
+            ctx.invalidate_mapping()
+        # strand-specific per-edge coverage for the RNA coverage chooser
+        # (SimpleCoverageExtensionChooser input, extenders_logic.cpp:460-466)
+        t0 = time.perf_counter()
+        ctx.ss_cov = fill_ss_coverage(ctx.graph, store, engine=ctx.mapping_engine())
+        MODE_STATS.append((ctx.k, self.id, {
+            "binned_edges": len(splitter.bins), "edges_split": n,
+            "fill_s": fill_s, "ss_cov_s": time.perf_counter() - t0,
+        }))
+
+
+class SeriesAnalysis(AssemblyStage):
+    """Multi-sample coverage-series profile dumps + profile-based clearing
+    (projects/spades/series_analysis.cpp, meta mode --series-analysis)."""
+
+    name = "Series Analysis"
+    id = "series_analysis"
+
+    def __init__(self, config_path: str):
+        self.config_path = config_path
+
+    def run(self, ctx: AssemblyContext) -> None:
+        if ctx.graph is None or ctx.graph.num_edges == 0:
+            return
+        from ..mts.series_analysis import SeriesAnalysisConfig, run_series_analysis
+
+        cfg = SeriesAnalysisConfig.load(self.config_path)
+        run_series_analysis(ctx.graph, cfg)
+        log.info("series analysis: profiles dumped (k=%d, %d samples)",
+                 cfg.k, cfg.sample_cnt)
 
 
 class GapClosing(AssemblyStage):
@@ -401,6 +473,61 @@ class SecondPhaseSetup(AssemblyStage):
         log.info(
             "second phase ready: %d trusted contig paths", len(storage.paths)
         )
+
+
+class DomainAnalysis(AssemblyStage):
+    """HMM domain extraction + domain-cluster candidates (biosyntheticSPAdes:
+    projects/spades/{extract_domains.cpp,domain_graph_construction.cpp},
+    domain_matcher.cpp; also the corona mode's HMM-guided path surface).
+
+    Aligns every profile to the graph, writes hits, and groups hits whose
+    paths share edges into candidate clusters (the domain-graph ordering at
+    its simplest).  The cursor DP is host numpy (`hmm/align.py`)."""
+
+    name = "Domain Analysis"
+    id = "domain_analysis"
+
+    def run(self, ctx: AssemblyContext) -> None:
+        profiles = ctx.hmm_profiles or []
+        if not profiles or ctx.graph is None or ctx.graph.num_edges == 0:
+            return
+        from ..hmm import align_hmm_to_graph
+
+        all_hits = []
+        dp_s = []
+        for hmm in profiles:
+            t0 = time.perf_counter()
+            hits = align_hmm_to_graph(ctx.graph, hmm, score_threshold=5.0)
+            dp_s.append((hmm.name, hmm.length, time.perf_counter() - t0))
+            for h in hits:
+                all_hits.append((hmm.name, h))
+            log.info("domain %s: %d hits", hmm.name, len(hits))
+        tsv = os.path.join(ctx.output_dir, "domain_hits.tsv")
+        with open(tsv, "w") as fh:
+            fh.write("domain\tscore\tpath\tseq_len\n")
+            for name, h in sorted(all_hits, key=lambda t: -t[1].score):
+                fh.write(
+                    f"{name}\t{h.score:.2f}\t{','.join(map(str, h.path))}\t{len(h.seq)}\n"
+                )
+        # cluster hits sharing edges -> gene cluster candidates
+        clusters: list[list[tuple[str, object]]] = []
+        for name, h in all_hits:
+            placed = False
+            for cl in clusters:
+                if any(set(h.path) & set(h2.path) for _n, h2 in cl):
+                    cl.append((name, h))
+                    placed = True
+                    break
+            if not placed:
+                clusters.append([(name, h)])
+        with open(os.path.join(ctx.output_dir, "gene_clusters.txt"), "w") as fh:
+            for i, cl in enumerate(clusters):
+                doms = ",".join(n for n, _ in cl)
+                fh.write(f"cluster_{i+1}\t{doms}\n")
+        MODE_STATS.append((ctx.k, self.id, {
+            "hits": len(all_hits), "clusters": len(clusters), "dp_s": dp_s,
+        }))
+        log.info("domain analysis: %d hits in %d clusters", len(all_hits), len(clusters))
 
 
 def _assembly_stats(contigs) -> str:

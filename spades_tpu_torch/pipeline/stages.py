@@ -56,6 +56,7 @@ class AssemblyContext:
     insert_size: float = 0.0
     long_read_storage: Any = None                       # LongReadStorage
     ss_cov: Any = None                                  # strand-specific coverage (rna)
+    hmm_profiles: list = field(default_factory=list)    # ProfileHMMs (DomainAnalysis)
     kmer_mapper: Any = None                             # alignment.kmer_mapper.KmerMapper
     # paired-info pack (UnclusteredPairedInfoIndices / clustered indices of
     # SPAdes GraphPack, graph_pack.cpp:30-53)

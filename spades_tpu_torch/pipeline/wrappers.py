@@ -2,9 +2,9 @@
 
 SPAdes ships thin wrappers that run spades.py with a mode flag
 (`src/projects/spades/pipeline/metaspades.py` etc.); these modules do the
-same for `python -m spades_tpu_torch.pipeline.<wrapper>`.  The wrappers of
-the modes not ported yet (rnaspades, rnaviralspades: ROADMAP A13e;
-coronaspades: A13f) are not here.
+same for `python -m spades_tpu_torch.pipeline.<wrapper>`: metaspades,
+rnaspades, plasmidspades, metaplasmidspades, rnaviralspades, metaviralspades
+and coronaspades.
 """
 from __future__ import annotations
 
@@ -22,6 +22,10 @@ def metaspades(argv=None) -> int:
     return _wrap("--meta", argv)
 
 
+def rnaspades(argv=None) -> int:
+    return _wrap("--rna", argv)
+
+
 def plasmidspades(argv=None) -> int:
     return _wrap("--plasmid", argv)
 
@@ -30,5 +34,13 @@ def metaplasmidspades(argv=None) -> int:
     return _wrap("--metaplasmid", argv)
 
 
+def rnaviralspades(argv=None) -> int:
+    return _wrap("--rnaviral", argv)
+
+
 def metaviralspades(argv=None) -> int:
     return _wrap("--metaviral", argv)
+
+
+def coronaspades(argv=None) -> int:
+    return _wrap("--corona", argv)

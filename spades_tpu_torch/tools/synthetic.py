@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.dna import revcomp_codes
+
 
 def _sample_pairs(G: int, cov: int, rl: int, err: float, seed: int,
                   insert_mean: int, insert_sd: int, truth: bool = False):
@@ -206,3 +208,200 @@ def write_fasta(path: str, seqs) -> None:
     with open(path, "w") as fh:
         for i, s in enumerate(seqs):
             fh.write(f">r{i}\n{s}\n")
+
+
+def make_transcriptome(n_genes: int, n_pairs: int, seed: int, rl: int = 100,
+                       err: float = 0.003, n_isoforms: int | None = None,
+                       n_convergent: int | None = None, median_len: int = 1200,
+                       len_sigma: float = 0.6, min_len: int = 300, max_len: int = 8000,
+                       expr_sigma: float = 1.5, insert_mean: int = 250, insert_sd: int = 25,
+                       chunk: int = 200_000) -> dict:
+    """A stranded RNA-seq library of a synthetic transcriptome.
+
+    `n_genes` genes of 3-6 random exons, each transcript's length log-normal
+    (median `median_len`, sigma `len_sigma`) clipped to [min_len, max_len];
+    `n_isoforms` genes (default a fifth) have a second isoform that skips one
+    inner exon; `n_convergent` pairs of other genes (default one in sixty)
+    overlap at their 3' ends by 100-300 nt on opposite strands (the second
+    gene's last bases are the reverse complement of the first's); every
+    transcript ends in a poly-A tail of 20-40 nt.  Expression is log-normal
+    (sigma `expr_sigma`) per transcript; `n_pairs` fragments are drawn in
+    proportion to expression times length, inserts normal(insert_mean,
+    insert_sd) cut to the transcript, read as dUTP pairs (read 1 from the
+    antisense strand, read 2 from the sense strand: `--ss rf`) with
+    substitutions at rate `err`.
+
+    Returns a dict: `transcripts` (uint8 codes, tails included), `gene` (the
+    gene of each transcript), `tail` (each transcript's poly-A length),
+    `isoform_pairs` (indices of the two isoforms of a gene), `convergent`
+    ((first, second, overlap) transcript indices), `fragments` (per
+    transcript), `r1`, `r2` ((n_pairs, rl) uint8)."""
+    rng = np.random.default_rng(seed)
+    n_isoforms = n_genes // 5 if n_isoforms is None else n_isoforms
+    n_convergent = n_genes // 60 if n_convergent is None else n_convergent
+    lens = np.clip(np.round(median_len * np.exp(rng.normal(0.0, len_sigma, n_genes))),
+                   min_len, max_len).astype(np.int64)
+    exons = []
+    for L in lens:
+        # 3-6 exons of at least 50 nt: 50 each, the rest split at random
+        n_ex = int(rng.integers(3, 7))
+        sizes = 50 + np.floor(rng.dirichlet(np.ones(n_ex)) * (L - 50 * n_ex)).astype(np.int64)
+        sizes[-1] += L - sizes.sum()
+        exons.append([rng.integers(0, 4, int(n)).astype(np.uint8) for n in sizes])
+    genes = rng.permutation(n_genes)
+    with_isoform = set(genes[:n_isoforms].tolist())
+    conv = genes[n_isoforms : n_isoforms + 2 * n_convergent].reshape(-1, 2)
+    bodies = [np.concatenate(ex) for ex in exons]
+    overlaps = rng.integers(100, 301, len(conv))
+    for (a, b), ov in zip(conv, overlaps):
+        bodies[b][-ov:] = revcomp_codes(bodies[a][-ov:])
+    transcripts, gene_of, isoform_pairs, first_of = [], [], [], {}
+    for g in range(n_genes):
+        first_of[g] = len(transcripts)
+        transcripts.append(bodies[g])
+        gene_of.append(g)
+        if g in with_isoform:
+            skip = int(rng.integers(1, len(exons[g]) - 1))
+            isoform_pairs.append((len(transcripts) - 1, len(transcripts)))
+            transcripts.append(np.concatenate([e for i, e in enumerate(exons[g]) if i != skip]))
+            gene_of.append(g)
+    tails = rng.integers(20, 41, len(transcripts))
+    transcripts = [np.concatenate([t, np.zeros(int(n), np.uint8)])
+                   for t, n in zip(transcripts, tails)]
+    convergent = [(first_of[int(a)], first_of[int(b)], int(ov))
+                  for (a, b), ov in zip(conv, overlaps)]
+    tlen = np.array([len(t) for t in transcripts], np.int64)
+    expr = np.exp(rng.normal(0.0, expr_sigma, len(transcripts)))
+    weight = expr * tlen
+    pick = rng.choice(len(transcripts), n_pairs, p=weight / weight.sum())
+    pool = np.concatenate(transcripts)
+    offs = np.concatenate([[0], np.cumsum(tlen)[:-1]])
+    r1 = np.empty((n_pairs, rl), np.uint8)
+    r2 = np.empty((n_pairs, rl), np.uint8)
+    cols = np.arange(rl)
+    for c0 in range(0, n_pairs, chunk):
+        t = pick[c0 : c0 + chunk]
+        n = len(t)
+        isize = np.clip(rng.normal(insert_mean, insert_sd, n).astype(np.int64), rl, tlen[t])
+        start = offs[t] + (rng.random(n) * (tlen[t] - isize + 1)).astype(np.int64)
+        sense = pool[start[:, None] + cols]
+        anti = (3 - pool[(start + isize - rl)[:, None] + cols])[:, ::-1]
+        for out, src in ((r1, anti), (r2, sense)):
+            em = rng.random(src.shape) < err
+            src = np.where(em, (src + rng.integers(1, 4, src.shape)) & 3, src)
+            out[c0 : c0 + n] = src
+    return {"transcripts": transcripts, "gene": np.array(gene_of, np.int64), "tail": tails,
+            "isoform_pairs": isoform_pairs, "convergent": convergent,
+            "fragments": np.bincount(pick, minlength=len(transcripts)), "r1": r1, "r2": r2}
+
+
+# the standard genetic code over ACGT codes (codon b0*16 + b1*4 + b2)
+_AA_OF_CODON = np.frombuffer(
+    b"KNKNTTTTRSRSIIMIQHQHPPPPRRRRLLLLEDEDAAAAGGGGVVVV*Y*YSSSS*CWCLFLF", np.uint8)
+
+
+def random_orf(rng, n_aa: int) -> tuple[np.ndarray, str]:
+    """An open reading frame of `n_aa` codons (ATG, then random sense codons)
+    and a stop codon, as uint8 codes, with its peptide (no stop)."""
+    sense = np.flatnonzero(_AA_OF_CODON != ord("*"))
+    codons = np.concatenate([[14], rng.choice(sense, n_aa - 1), [48]])   # ATG ... TAA
+    codes = np.stack([codons // 16, (codons // 4) % 4, codons % 4], axis=1).reshape(-1)
+    return codes.astype(np.uint8), _AA_OF_CODON[codons[:-1]].tobytes().decode()
+
+
+def _pairs_of(rng, seqs, covs, rl: int, err: float, insert_mean: int, insert_sd: int):
+    """FR pairs of each sequence at its coverage, shuffled together."""
+    parts = [_fr_pairs(rng, s, c, rl, err, insert_mean, insert_sd) for s, c in zip(seqs, covs)]
+    r1 = np.concatenate([a for a, _ in parts])
+    r2 = np.concatenate([b for _, b in parts])
+    order = rng.permutation(len(r1))
+    return r1[order], r2[order]
+
+
+def make_domain_genome(size: int, domain_aa, coverage: float, seed: int, rl: int = 150,
+                       err: float = 0.003, insert_mean: int = 400, insert_sd: int = 30) -> dict:
+    """A random genome of `size` nt with one planted gene per entry of
+    `domain_aa` (codons each; evenly spaced, every other one on the reverse
+    strand), sampled as FR pairs at `coverage`.  Returns a dict: `genome`,
+    `orfs` (uint8 codes, sense strand), `peptides`, `r1`, `r2`."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size).astype(np.uint8)
+    orfs, peptides = [], []
+    for i, n in enumerate(domain_aa):
+        orf, pep = random_orf(rng, int(n))
+        at = (i + 1) * size // (len(domain_aa) + 1)
+        genome[at : at + len(orf)] = orf if i % 2 == 0 else revcomp_codes(orf)
+        orfs.append(orf)
+        peptides.append(pep)
+    r1, r2 = _pairs_of(rng, [genome], [coverage], rl, err, insert_mean, insert_sd)
+    return {"genome": genome, "orfs": orfs, "peptides": peptides, "r1": r1, "r2": r2}
+
+
+def make_corona_dataset(seed: int, genome_nt: int = 30_000, n_orfs: int = 10,
+                        fixed_aa=(120, 200, 300),
+                        leader: int = 70, coverage: float = 2000, host_nt: int = 200_000,
+                        host_cov=(5, 50), rl: int = 150, err: float = 0.003,
+                        insert_mean: int = 400, insert_sd: int = 30) -> dict:
+    """A coronavirus-like sample: a random positive-strand genome of
+    `genome_nt` nt whose first `leader` nt are the leader, with `n_orfs`
+    planted ORFs (the first, ORF1-like, a quarter of the genome; then one of
+    each length in `fixed_aa` codons; the rest 100 to 420 codons; in order
+    along the genome), and one nested 3'-co-terminal
+    subgenomic RNA per later ORF: the leader joined to the genome from just
+    before that ORF to the 3' end.  Genomic RNA and subgenomic RNAs together
+    give `coverage` of the genome; the sgRNAs of later ORFs are more abundant
+    (as in infected cells).  Host transcripts of `host_nt` nt in all (500 to
+    3,000 nt each) come at coverages drawn from `host_cov`.  Returns a dict:
+    `genome`, `orfs` ((start, end) on the genome, stop included),
+    `peptides`, `sg_starts`, `host`, `r1`, `r2`."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_nt).astype(np.uint8)
+    lens = [genome_nt // 12, *fixed_aa]
+    lens += [int(x) for x in rng.integers(100, 421, n_orfs - len(lens))]
+    gaps = genome_nt - leader - 3 * (sum(lens) + n_orfs) - 300
+    if gaps < 0:
+        raise ValueError("the ORFs do not fit into the genome")
+    spacing = rng.dirichlet(np.ones(n_orfs)) * gaps
+    at, orfs, peptides = leader + 100, [], []
+    for n, gap in zip(lens, spacing):
+        at += int(gap)
+        orf, pep = random_orf(rng, n)
+        genome[at : at + len(orf)] = orf
+        orfs.append((at, at + len(orf)))
+        peptides.append(pep)
+        at += len(orf)
+    sg_starts = [s - 30 for s, _e in orfs[1:]]
+    sgrnas = [np.concatenate([genome[:leader], genome[s:]]) for s in sg_starts]
+    abund = np.linspace(1.0, 3.0, len(sgrnas))
+    weights = np.concatenate([[1.0], abund])
+    nt = np.array([genome_nt] + [len(s) for s in sgrnas], np.float64)
+    covs = coverage * genome_nt * weights / (weights * nt).sum()
+    host, total = [], 0
+    while total < host_nt:
+        n = int(min(rng.integers(500, 3001), host_nt - total + 500))
+        host.append(rng.integers(0, 4, n).astype(np.uint8))
+        total += n
+    host_covs = rng.uniform(host_cov[0], host_cov[1], len(host))
+    r1, r2 = _pairs_of(rng, [genome] + sgrnas + host, list(covs) + list(host_covs), rl, err,
+                       insert_mean, insert_sd)
+    return {"genome": genome, "orfs": orfs, "peptides": peptides, "sg_starts": sg_starts,
+            "host": host, "r1": r1, "r2": r2}
+
+
+def make_series(sizes, sample_coverages, rl: int, err: float, seed: int, shared: int = 5000,
+                insert_mean: int = 400, insert_sd: int = 30):
+    """One community of random genomes (`sizes` nt; the two first share a
+    segment of `shared` nt, as in `make_community`) sampled several times:
+    one set of shuffled FR pairs per entry of `sample_coverages`, each a
+    coverage per genome (a time series of abundances).
+    Returns (genomes, [(r1, r2) per sample])."""
+    rng = np.random.default_rng(seed)
+    genomes = [rng.integers(0, 4, n).astype(np.uint8) for n in sizes]
+    if shared and len(genomes) > 1:
+        seg = rng.integers(0, 4, shared).astype(np.uint8)
+        for gnm in genomes[:2]:
+            at = int(rng.integers(0, len(gnm) - shared))
+            gnm[at : at + shared] = seg
+    samples = [_pairs_of(rng, genomes, covs, rl, err, insert_mean, insert_sd)
+               for covs in sample_coverages]
+    return genomes, samples

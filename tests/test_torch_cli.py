@@ -132,21 +132,25 @@ def test_yaml_emitter_quotes_what_yaml_would_misread():
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--rnaviral"], "A13e"),                      # error correction is the default
-    (["--only-error-correction", "--rna"], "A13e"),
-    (["--iontorrent", "--bio"], "A13f"),
+    # the RNA, bio/corona and series-analysis options are ported: each of
+    # their former cases keeps its flags and meets one of the two refusals left
+    (["--rnaviral", "--num-processes", "2"], "A15"),    # error correction is the default
+    (["--only-error-correction", "--rna", "--read-cov-threshold", "3"], "A14"),
+    (["--iontorrent", "--bio", "--num-processes", "2"], "A15"),
     (["--only-assembler", "--read-cov-threshold", "3"], "A14"),
     (["--only-assembler", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--rna", "--fl-rna", "lr.fq"], "A13e"),
-    (["--only-assembler", "--meta", "--series-analysis", "s.yaml"], "A13g"),
-    (["--only-assembler", "--nanopore", "lr.fq", "--custom-hmms", "p.hmm"], "A13f"),
-    (["--only-assembler", "--fl-rna", "lr.fq"], "A13e"),
-    (["--only-assembler", "--custom-hmms", "p.hmm"], "A13f"),
-    (["--only-assembler", "--assembly-graph", "g.gfa", "--rna"], "A13e"),
-    (["--careful", "--corona"], "A13f"),
-    (["--mismatch-correction", "--rnaviral"], "A13e"),
-    (["--only-assembler", "--meta", "--ss", "rf"], "A13e"),
-    (["--only-assembler", "--rna", "--ss", "fr"], "A13e"),
+    (["--only-assembler", "--rna", "--fl-rna", "lr.fq", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--meta", "--series-analysis", "s.yaml", "--num-processes", "2"],
+     "A15"),
+    (["--only-assembler", "--nanopore", "lr.fq", "--custom-hmms", "p.hmm",
+      "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--fl-rna", "lr.fq", "--num-processes", "2"], "A15"),
+    (["--only-assembler", "--custom-hmms", "p.hmm", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--assembly-graph", "g.gfa", "--rna", "--num-processes", "2"], "A15"),
+    (["--careful", "--corona", "--read-cov-threshold", "3"], "A14"),
+    (["--mismatch-correction", "--rnaviral", "--num-processes", "2"], "A15"),
+    (["--only-assembler", "--meta", "--ss", "rf", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--rna", "--ss", "fr", "--num-processes", "2"], "A15"),
     (["--only-assembler", "--plasmid", "--num-processes", "4"], "A15"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):

@@ -221,10 +221,14 @@ def test_synthetic_generator_is_the_bench_generator(tmp_path):
 
 
 def test_early_clipping_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        t_construct(["ACGT" * 20], 21, early_tip_clip=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_construct(["ACGT" * 20], 21, early_at_clip=True, device="cpu")
+    """Early clipping is ported now (`tests/test_torch_early_clip.py`); the
+    inputs this test once saw refused build the reference's graph."""
+    for clip in ({"early_tip_clip": True}, {"early_at_clip": True}):
+        for seqs in (["ACGT" * 20], ["ACGT" * 20 + "A" * 30]):
+            jg = j_construct(seqs, 21, **clip).graph
+            tg = t_construct(seqs, 21, device="cpu", **clip).graph
+            for f in ("e_start", "e_end", "e_conj", "e_len", "e_cov", "seq_pool", "v_conj"):
+                assert np.array_equal(getattr(jg, f), getattr(tg, f)), f
 
 
 def test_resolve_device_never_falls_back_silently(monkeypatch):

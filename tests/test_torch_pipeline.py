@@ -417,29 +417,6 @@ def test_assembler_matches(ladder_reads, lowered):
     assert t_assembler.default_k_ladder(150) == j_assembler.default_k_ladder(150)
 
 
-# -- what is not ported raises ---------------------------------------------------
-
-@pytest.mark.parametrize("kw, item", [
-    ({"mode": "bio"}, "A13f"),                     # disable_rr defaults to False
-    ({"mode": "meta", "series_analysis": "series.yaml"}, "A13g"),
-    ({"disable_rr": True, "careful": True, "mode": "corona"}, "A13f"),
-    ({"disable_rr": True, "mismatch_correction": True, "mode": "rnaviral"}, "A13e"),
-    ({"disable_rr": True, "long_reads": ["ACGT" * 30], "hmm_profiles": ["p.hmm"]}, "A13f"),
-    ({"disable_rr": True, "assembly_graph": "graph.gfa", "mode": "rna"}, "A13e"),
-    ({"disable_rr": True, "series_analysis": "series.yaml"}, "A13g"),
-    ({"disable_rr": True, "ss": "fr"}, "A13e"),
-    ({"disable_rr": True, "hmm_profiles": ["p.hmm"]}, "A13f"),
-    ({"disable_rr": True, "mode": "plasmid", "ss": "rf"}, "A13e"),
-    ({"disable_rr": True, "mode": "rna"}, "A13e"),
-    ({"disable_rr": True, "config_overlay": {"construction": {"early_tip_clip": True}}},
-     "early tip"),
-])
-def test_unported_arguments_raise(tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_run.run_assembly(["ACGT" * 30], [21], str(tmp_path / "o"), device="cpu", **kw)
-    assert not os.path.exists(tmp_path / "o" / "contigs.fasta")
-
-
 def test_run_assembly_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -458,7 +435,11 @@ def test_import_scan_covers_the_new_modules():
            "pipeline/run.py", "pipeline/assembler.py", "utils/errors.py", "graph/from_gfa.py",
            "graph/chromosome_remover.py", "alignment/edit.py", "alignment/long_read.py",
            "pipeline/wrappers.py", "pipeline/metaspades.py", "pipeline/plasmidspades.py",
-           "pipeline/metaplasmidspades.py", "pipeline/metaviralspades.py"]
+           "pipeline/metaplasmidspades.py", "pipeline/metaviralspades.py",
+           "ops/early_clip.py", "alignment/ss_coverage.py", "hmm/__init__.py", "hmm/io.py",
+           "hmm/align.py", "mts/__init__.py", "mts/multiplicity.py", "mts/abundance.py",
+           "mts/binning.py", "mts/series_analysis.py", "pipeline/rnaspades.py",
+           "pipeline/rnaviralspades.py", "pipeline/coronaspades.py"]
     scanned = {str(p.relative_to(REPO / "spades_tpu_torch"))
                for p in (REPO / "spades_tpu_torch").rglob("*.py")}
     assert set(new) <= scanned
