@@ -67,11 +67,11 @@
    after phase 7, makes the small runs of phases 9 to 11 (the community cut
    to 300 kb, the hybrid run, every mode, the GFA start) on the CPU while
    the card works; every file each wrote must equal the card's.
-13. Every shape phases 3 to 15 gave the kernel that phase 2 did not hold
+13. Every shape phases 3 to 16 gave the kernel that phase 2 did not hold
    yet, against the plain version and timed (run last).
 14. rnaSPAdes at full width: a synthetic stranded (dUTP) transcriptome of
    3,000 genes (600 with a second isoform, 50 convergent pairs overlapping
-   at their 3' ends, poly-A tails, log-normal expression) as 1,000,000 pairs
+   at their 3' ends, poly-A tails, log-normal expression) as 750,000 pairs
    of 100 bp through `run_assembly(mode="rna", ss="rf")` over the CLI's K
    choice: the early A/T clipper and SSEdgeSplit at every K, the stage
    times, the kernel's launches, peak device memory, and transcripts.fasta
@@ -87,7 +87,23 @@
    on a 300 kb genome at 40x, and series analysis of phase 9's 300 kb
    community in three samples; every profile's best hit must spell its
    gene, and a second CPU worker, started with the first, makes every run
-   on the CPU: every file must be equal.
+   on the CPU: every file must be equal.  The CLI's `--read-cov-threshold 3`
+   runs on the gap set's raw pairs among these CLI runs.
+16. The standalone tools, in this process through their `main(argv)` with
+   `--device cuda`: `kmercount` at k = 55 (its unique count must equal the
+   k-mers of phase 3's graph) and at k = 21, `kmer_estimating` at k = 55
+   (HyperLogLog, within 5 % of that count) and `read_filter -k 21 -c 2` on
+   the whole isolate, the last with 2,000 pairs of a random contaminant at
+   0.3x after it (at least 99 % of the genome's pairs kept, 90 % of the
+   contaminant's dropped); then, each against the same run on the CPU (a
+   third CPU worker, started before phase 14, or the slice-7 worker over its
+   own phase 15 outputs): kmercount, the HLL registers and read_filter on
+   phase 3's subset, `gmapper` on phase 7's k=55 graph with its reads, and
+   the host tools `gsimplifier`, `gfa_split`, `gchecker`,
+   `convert_bin_to_fasta`, `corrector` (with reads, and with `--sam` from
+   `mappings_to_sam`), `spaligner` (phase 10's long reads), `pathracer` (the
+   first corona profile on the corona run's graph) and `mts` (the series
+   run's contigs and samples); every file and printed line must be equal.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
@@ -341,6 +357,11 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
         check(np.array_equal(getattr(got.graph, f), getattr(ref.graph, f)),
               f"subset: device and CPU graphs differ in {f}")
 
+    # the subset as FASTQ, for phase 16's tools
+    subset = [os.path.join(workdir, "sub_1.fq"), os.path.join(workdir, "sub_2.fq")]
+    synthetic.write_fastq(subset[0], r1[:sub], 1)
+    synthetic.write_fastq(subset[1], r2[:sub], 2)
+
     rec = {
         "phase": "main_path",
         "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
@@ -350,14 +371,18 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
         "timings": {"gbuilder_k55": res_g.timings},
         "launches": launches,
         "unique_p1": {"gbuilder_k55": res_g.p1_counts.num_unique},
+        "unique_k": {"gbuilder_k55": res_g.index.num_kmers},
         "edges": {"gbuilder_k55": int(res_g.graph.e_start.shape[0])},
         "gfa_segments": gfa_s,
         "subset_pairs": sub,
         "subset_edges": int(got.graph.e_start.shape[0]),
         "peak_device_gib": peak_gib,
     }
+    isolate = {"paths": paths, "subset": subset, "pairs": int(n_pairs), "subset_pairs": sub,
+               "unique_k55": res_g.index.num_kmers}
     return rec, main_launches, {"store": store, "graph": res_g.graph, "n_pairs": n_pairs,
-                                "genome": genome, "r1": r1, "r2": r2, "c1": c1, "c2": c2}
+                                "genome": genome, "r1": r1, "r2": r2, "c1": c1, "c2": c2,
+                                "isolate": isolate}
 
 
 # ---------------------------------------------------------------------------
@@ -1159,7 +1184,7 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
     from spades_tpu_torch.pipeline.run import run_assembly
     from spades_tpu_torch.tools import synthetic
 
-    _genome, r1, r2, gaps, c1, c2 = synthetic.make_gapped_dataset(
+    genome, r1, r2, gaps, c1, c2 = synthetic.make_gapped_dataset(
         genome_size, coverage, rl, 0.003, seed + 1, n_gaps, truth=True)
     q1, q2 = (synthetic.error_qualities(r, c, seed + 21 + i)
               for i, (r, c) in enumerate(((r1, c1), (r2, c2))))
@@ -1275,7 +1300,7 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage
     }
     shapes.update(shapes_ec)
     return rec, launches, shapes, {"r1": r1, "r2": r2, "q1": q1, "q2": q2, "k": k,
-                                   "out": got[5], "fixed": fixed}
+                                   "out": got[5], "fixed": fixed, "genome": genome}
 
 
 # ---------------------------------------------------------------------------
@@ -1812,7 +1837,7 @@ def phase_card_against_cpu(workdir: str, card_recs: dict, worker, timeout_s: int
 # ---------------------------------------------------------------------------
 
 # phase 14's transcriptome and the sets of phase 15 (card and CPU worker)
-RNA_SIZES = {"genes": 3000, "pairs": 1_000_000, "small_genes": 250, "small_pairs": 80_000,
+RNA_SIZES = {"genes": 3000, "pairs": 750_000, "small_genes": 250, "small_pairs": 80_000,
              "corona_nt": 30_000, "corona_cov": 2000, "host_nt": 200_000,
              "bio_nt": 300_000, "bio_cov": 40, "series_total": 300_000}
 # the three samples of the series set: per-genome coverages of phase 9's
@@ -1980,7 +2005,7 @@ def _slice7_inputs(workdir: str, seed: int, sizes: dict) -> dict:
     side and the CPU worker's, from the seed): the small transcriptome as
     FASTQ and arrays with two full-length transcripts, the corona sample and
     its three amino profiles, the bio genome with its two, and the series
-    samples with their k-mer profiles' config."""
+    samples with their k-mer profiles' config, and the gap set's raw pairs."""
     from spades_tpu_torch.hmm.io import hmm_from_consensus, write_hmm
     from spades_tpu_torch.tools import synthetic
 
@@ -2013,6 +2038,12 @@ def _slice7_inputs(workdir: str, seed: int, sizes: dict) -> dict:
             synthetic.write_fastq(files[f"{name}_{mate}"], d[key], mate)
     scaled = [s * sizes["series_total"] // sum(META_SIZES) for s in META_SIZES]
     files["series"] = synthetic.make_series(scaled, SERIES_COVERAGES, 150, 0.003, seed + 8)
+    # phase 7's gap set (its raw pairs), for the CLI's --read-cov-threshold
+    _g, r1, r2, _gaps = synthetic.make_gapped_dataset(
+        sizes["gap_genome"], 40, 150, 0.003, seed + 1, sizes["gap_count"])
+    for mate, reads in ((1, r1), (2, r2)):
+        files[f"gap_{mate}"] = os.path.join(workdir, f"gap_{mate}.fq")
+        synthetic.write_fastq(files[f"gap_{mate}"], reads, mate)
     return files
 
 
@@ -2034,6 +2065,8 @@ def slice7_cli_runs(workdir: str, files: dict, where, threads: int | None = None
                                     *_custom_hmms(files["corona_hmms"]), *k]),
         ("bio", "main", ["-1", files["bio_1"], "-2", files["bio_2"], "--bio",
                          *_custom_hmms(files["bio_hmms"]), "--only-assembler", *k]),
+        ("cli_read_cov", "main", ["-1", files["gap_1"], "-2", files["gap_2"],
+                                  "--read-cov-threshold", "3", "--only-assembler", *k]),
     )
     for name, entry, args in cli:
         out, wall_s, launches, log_text = run_cli(where, workdir, name, args, entry=entry,
@@ -2128,6 +2161,7 @@ def slice7_worker(workdir: str, seed: int, sizes: dict) -> int:
         r.pop("log", None)
         with open(os.path.join(workdir, f"{name}.json"), "w") as fh:
             json.dump({k: v for k, v in r.items() if k != "out"}, fh)
+    slice7_tool_runs(workdir, files, cpu)      # phase 16's pathracer and mts
     return 0
 
 
@@ -2221,6 +2255,15 @@ def phase_other_modes(dev, workdir: str, card_dir: str, files: dict, cli, worker
         check(len(found) == 1, f"{name}: DomainAnalysis did not run once")
         dp[name] = found[0].rsplit("(", 1)[-1].rstrip(")")
     report["domain_analysis_s"] = dp
+    # the CLI's --read-cov-threshold on the gap set (its files are compared below)
+    found = [ln for ln in runs["cli_read_cov"]["log"].splitlines()
+             if "read coverage filter: " in ln]
+    check(len(found) == 1, "--read-cov-threshold: the CLI did not log the reads it kept")
+    kept, total = (int(x) for x in
+                   found[0].split("read coverage filter: ", 1)[1].split()[0].split("/"))
+    check(0 < kept <= total == read_bytes(files["gap_1"]).count(b"\n") // 2,
+          f"--read-cov-threshold: kept {kept} of {total} reads")
+    report["cli_read_cov"]["reads_kept"] = [kept, total]
     report["series"]["profiles"] = runs["series"]["profiles"]
     report["series"]["profile_s"] = runs["series"]["profile_s"]
     # every file against the CPU worker's
@@ -2276,6 +2319,341 @@ def phase_other_modes(dev, workdir: str, card_dir: str, files: dict, cli, worker
                                   "community_nt": files["sizes"]["series_total"]}},
            "runs": report, "card_against_cpu": compared, "waited_for_cpu_s": waited,
            "tolerance": 0, "launches_by_caller": launches_by_caller(shapes)}
+    return rec, launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# 16. the standalone tools
+# ---------------------------------------------------------------------------
+
+# read_filter's contaminant: 2,000 pairs (0.3x) of a random 2 Mb genome.  At
+# 0.6x (1 Mb) a pair's larger median passes 2 in 11-14 % of pairs (the port
+# on the CPU, six seeds): two other reads over half of a read are common.
+CONTAMINANT_NT = 2_000_000
+CONTAMINANT_COV = 0.3
+# the tools of the twin runs that launch the kernel on the card
+DEVICE_TWINS = ("kmercount_subset", "registers_subset", "read_filter_subset", "gmapper",
+                "sam_map")
+
+
+def _concat(out: str, *paths) -> str:
+    with open(out, "wb") as fo:
+        for p in paths:
+            with open(p, "rb") as fi:
+                shutil.copyfileobj(fi, fo)
+    return out
+
+
+def tools_inputs(workdir: str, seed: int, isolate: dict, gap_state: dict) -> dict:
+    """Phase 16's input files, written before phase 14 so that the tools'
+    CPU worker can run beside it: the isolate's first pairs (phase 3's
+    subset), read_filter's inputs (the isolate's pairs, or the subset, with
+    2,000 contaminant pairs after them), the gap set's genome, k=55 GFA,
+    contigs, raw FASTQ and long reads (phases 7 and 10), and `convert_reads`
+    chunks of the subset.  Returns their paths."""
+    import numpy as np
+
+    from spades_tpu_torch.io.binary_reads import convert_reads
+    from spades_tpu_torch.io.fastx import read_sequences
+    from spades_tpu_torch.tools import synthetic
+
+    d = os.path.join(workdir, "tools_in")
+    os.makedirs(d)
+    rng = np.random.default_rng(seed + 9)
+    contaminant = rng.integers(0, 4, CONTAMINANT_NT).astype(np.uint8)
+    c1, c2 = synthetic._fr_pairs(rng, contaminant, CONTAMINANT_COV, 150, 0.003, 400, 30)
+    inp = {"dir": d, "pairs": isolate["pairs"], "subset_pairs": isolate["subset_pairs"],
+           "contaminant_pairs": int(c1.shape[0])}
+    for mate, reads in ((1, c1), (2, c2)):
+        cont = os.path.join(d, f"contaminant_{mate}.fq")
+        synthetic.write_fastq(cont, reads, mate, prefix="c")
+        inp[f"isolate_{mate}"] = isolate["paths"][mate - 1]
+        inp[f"sub_{mate}"] = isolate["subset"][mate - 1]
+        inp[f"rf_{mate}"] = _concat(os.path.join(d, f"rf_{mate}.fq"),
+                                    isolate["paths"][mate - 1], cont)
+        inp[f"rf_sub_{mate}"] = _concat(os.path.join(d, f"rf_sub_{mate}.fq"),
+                                        isolate["subset"][mate - 1], cont)
+    inp["gap_genome"] = os.path.join(d, "gap_genome.fasta")
+    synthetic.write_fasta(inp["gap_genome"], read_strings(gap_state["genome"][None, :]))
+    inp["gap_gfa"] = os.path.join(gap_state["out"], GFA_NAME)
+    inp["gap_contigs"] = os.path.join(gap_state["out"], "contigs.fasta")
+    inp["gap_1"], inp["gap_2"] = (os.path.join(workdir, f"cli_raw_{m}.fq") for m in (1, 2))
+    inp["long_reads"] = os.path.join(workdir, "long_reads.fasta")
+    inp["bin_dir"] = os.path.join(d, "bin_reads")
+    convert_reads(inp["bin_dir"], list(read_sequences(isolate["subset"])), chunks=8)
+    return inp
+
+
+def _tool(name: str, main, argv: list, out: str, runs: dict, where, counted: bool):
+    """One tool's `main(argv + [-w out])` in this process with its printed
+    lines captured (the script's own standard output carries JSON only); its
+    wall time, printed text (the output directory masked) and, when
+    `counted`, the kernel's launches go into `runs[name]`."""
+    import io
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    CK.canonical_window_keys.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv + ["-w", out, "--device", where.type])
+    sync(where)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{name}: the tool returned {rc}")
+    runs[name] = {"wall_s": wall, "printed": buf.getvalue().replace(out, "<out>")}
+    if counted:
+        runs[name]["launches"] = CK.canonical_window_keys.launches
+    return buf.getvalue()
+
+
+def tool_twin_runs(out: str, inp: dict, where) -> dict:
+    """The tool runs that both sides make, into `out/<name>`: kmercount,
+    the HLL registers and read_filter on the subset, and gmapper, gsimplifier,
+    gfa_split, gchecker, convert_bin_to_fasta, corrector (with the reads, and
+    with `--sam` from `mappings_to_sam` of the reads mapped on `where`) and
+    spaligner on the gap set.  Returns {name: record}."""
+    import numpy as np
+
+    from spades_tpu_torch.alignment.mapper import build_edge_index, map_read_batch
+    from spades_tpu_torch.core.reads import batch_iter
+    from spades_tpu_torch.graph.from_gfa import graph_from_gfa
+    from spades_tpu_torch.io.fastx import read_fastx, read_sequences
+    from spades_tpu_torch.io.gfa import read_gfa
+    from spades_tpu_torch.io.sam import mappings_to_sam
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.ops.hll import kmer_registers
+    from spades_tpu_torch.tools import (convert_bin_to_fasta, corrector, gchecker, gfa_split,
+                                        gmapper, gsimplifier, kmercount, read_filter, spaligner)
+
+    runs = {}
+    sub = [inp["sub_1"], inp["sub_2"]]
+    # the subset's one batch is below the host-counting threshold: lowered,
+    # as for the small sets, so that both sides count on the device path
+    with environment({"SPADES_HOST_COUNT_WINDOWS": "1"}):
+        _tool("kmercount_subset", kmercount.main, [*sub, "-k", "55", "--counts"],
+              os.path.join(out, "kmercount_subset"), runs, where, True)
+    CK.canonical_window_keys.launches = 0
+    t0 = time.perf_counter()
+    regs = kmer_registers(batch_iter(read_sequences(sub)), 55, device=where)
+    os.makedirs(os.path.join(out, "registers_subset"))
+    np.save(os.path.join(out, "registers_subset", "registers.npy"), regs)
+    runs["registers_subset"] = {"wall_s": time.perf_counter() - t0, "printed": "",
+                                "launches": CK.canonical_window_keys.launches}
+    rf = os.path.join(out, "read_filter_subset")
+    _tool("read_filter_subset", read_filter.main,
+          ["-1", inp["rf_sub_1"], "-2", inp["rf_sub_2"], "-k", "21", "-c", "2", "-o", rf],
+          rf, runs, where, True)
+    with environment(SMALL_SET_ENV):
+        _tool("gmapper", gmapper.main, [inp["gap_gfa"], inp["gap_1"], "-k", "55"],
+              os.path.join(out, "gmapper"), runs, where, True)
+    _tool("gsimplifier", gsimplifier.main, [inp["gap_gfa"], "-k", "55", "--read-length", "150"],
+          os.path.join(out, "gsimplifier"), runs, where, False)
+    _tool("gfa_split", gfa_split.main, [inp["gap_gfa"]], os.path.join(out, "gfa_split"),
+          runs, where, False)
+    _tool("gchecker", gchecker.main, [inp["gap_contigs"], inp["gap_genome"]],
+          os.path.join(out, "gchecker"), runs, where, False)
+    _tool("convert_bin_to_fasta", convert_bin_to_fasta.main, [inp["bin_dir"]],
+          os.path.join(out, "convert_bin_to_fasta"), runs, where, False)
+    _tool("corrector_reads", corrector.main,
+          [inp["gap_contigs"], inp["gap_1"], inp["gap_2"], "-k", "21"],
+          os.path.join(out, "corrector_reads"), runs, where, False)
+    # the SAM path: the gap graph's edges as contigs, the mates of the first
+    # reads mapped onto it on `where` and written as SAM
+    sam_dir = os.path.join(out, "sam_map")
+    os.makedirs(sam_dir)
+    g = graph_from_gfa(read_gfa(inp["gap_gfa"]), 55)
+    edges = os.path.join(sam_dir, "edges.fasta")
+    with open(edges, "w") as fh:
+        for e in g.canonical_edge_ids():
+            fh.write(f">{int(e)}\n{g.edge_seq(int(e))}\n")
+    recs = list(read_fastx(inp["gap_1"]))[:20_000]
+    CK.canonical_window_keys.launches = 0
+    t0 = time.perf_counter()
+    with environment(SMALL_SET_ENV):
+        mappings = map_read_batch(build_edge_index(g), g, [r.seq for r in recs], device=where)
+    sam = os.path.join(sam_dir, "reads.sam")
+    n = mappings_to_sam(sam, g, [r.name for r in recs], [r.seq for r in recs], mappings)
+    runs["sam_map"] = {"wall_s": time.perf_counter() - t0, "printed": f"{n} mapped",
+                       "launches": CK.canonical_window_keys.launches}
+    _tool("corrector_sam", corrector.main, [edges, "--sam", sam],
+          os.path.join(out, "corrector_sam"), runs, where, False)
+    _tool("spaligner", spaligner.main, [inp["gap_gfa"], inp["long_reads"], "-k", "55",
+                                        "-d", "nanopore"],
+          os.path.join(out, "spaligner"), runs, where, False)
+    return runs
+
+
+def slice7_tool_runs(workdir: str, files: dict, where) -> dict:
+    """pathracer with the first corona profile on the graph of the corona run,
+    and mts on the series run's contigs with its three samples, both over
+    phase 15's outputs under `workdir`, into `workdir/tools/<name>`."""
+    from spades_tpu_torch.tools import mts, pathracer, synthetic
+
+    out = os.path.join(workdir, "tools")
+    runs = {}
+    _tool("pathracer", pathracer.main,
+          [files["corona_hmms"][0], os.path.join(workdir, "corona", GFA_NAME), "-k", "55"],
+          os.path.join(out, "pathracer"), runs, where, False)
+    samples = []
+    for i, (a, b) in enumerate(files["series"][1]):
+        samples.append(os.path.join(out, f"series_sample{i + 1}.fasta"))
+        synthetic.write_fasta(samples[-1], read_strings(a) + read_strings(b))
+    _tool("mts", mts.main, [os.path.join(workdir, "series", "run", "contigs.fasta"), *samples,
+                            "-k", "55", "--min-mult", "2"],
+          os.path.join(out, "mts"), runs, where, True)
+    for p in samples:
+        os.unlink(p)
+    return runs
+
+
+def tools_worker(workdir: str, inp: dict) -> int:
+    """The CPU side of phase 16 (`--cpu-worker ... --runs tools`)."""
+    import torch
+
+    torch.set_num_threads(2)          # beside phase 14 and the slice-7 worker
+    runs = tool_twin_runs(workdir, inp, torch.device("cpu"))
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(runs, fh)
+    return 0
+
+
+def start_tools_worker(workdir: str, inp: dict):
+    out = os.path.join(workdir, "cpu_side_tools")
+    os.makedirs(out)
+    log = open(os.path.join(workdir, "cpu_worker_tools.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-worker", out, "--runs", "tools",
+         "--sizes", json.dumps(inp)],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, out, log
+
+
+def same_trees(name: str, a: str, b: str) -> int:
+    """Every file under `a` equals the file of that name under `b`."""
+    names, other = files_under(a), files_under(b)
+    check(names == other, f"{name}: the card and the CPU wrote different files: "
+                          f"{sorted(names ^ other)[:10]}")
+    for rel in sorted(names):
+        check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+              f"{name}: the card's and the CPU's {rel} differ")
+    return len(names)
+
+
+def phase_tools(dev, workdir: str, inp: dict, isolate: dict, worker, card7: str, files7: dict,
+                cpu7: str):
+    """Phase 16: the standalone tools on the card.  kmercount at k = 55 and
+    21, kmer_estimating at k = 55 and read_filter at k = 21 on the whole
+    isolate (with the contaminant); the twin runs of `tool_twin_runs` and
+    `slice7_tool_runs`, each file against the CPU's (the tools' worker, and
+    the slice-7 worker's runs over its own phase 15 outputs)."""
+    import numpy as np
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.tools import kmer_estimating, kmercount, read_filter
+
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    out = os.path.join(workdir, "card_side_tools")
+    full = {}
+    iso = [inp["isolate_1"], inp["isolate_2"]]
+    for k in (55, 21):
+        _tool(f"kmercount_k{k}", kmercount.main, [*iso, "-k", str(k), "--counts"],
+              os.path.join(out, f"kmercount_k{k}"), full, dev, True)
+    est_text = _tool("kmer_estimating", kmer_estimating.main, [*iso, "-k", "55"],
+                     os.path.join(out, "kmer_estimating"), full, dev, True)
+    rf = os.path.join(out, "read_filter")
+    _tool("read_filter", read_filter.main,
+          ["-1", inp["rf_1"], "-2", inp["rf_2"], "-k", "21", "-c", "2", "-o", rf],
+          rf, full, dev, True)
+    twins = tool_twin_runs(os.path.join(out, "twins"), inp, dev)
+    twins.update(slice7_tool_runs(card7, files7, dev))
+    CK.canonical_window_keys.launch_shapes = None
+    t_card = time.perf_counter()
+
+    # -- the whole isolate --------------------------------------------------
+    unique = {}
+    for k in (55, 21):
+        words = os.path.getsize(os.path.join(out, f"kmercount_k{k}", "final_kmers"))
+        unique[k] = words // (8 * ((2 * k + 63) // 64))
+        printed = int(full[f"kmercount_k{k}"]["printed"].split()[0])
+        check(printed == unique[k], f"kmercount k={k}: printed {printed}, wrote {unique[k]}")
+    check(unique[55] == isolate["unique_k55"],
+          f"kmercount k=55: {unique[55]} unique k-mers, phase 3's graph holds "
+          f"{isolate['unique_k55']}")
+    est = int(est_text.rsplit(":", 1)[1])
+    hll_err = abs(est - unique[55]) / unique[55]
+    check(hll_err < 0.05, f"kmer_estimating: {est} is {hll_err:.4f} off the exact {unique[55]}")
+    kept = {"p": 0, "c": 0}
+    with open(os.path.join(rf, "filtered_1.fasta")) as fh:
+        for line in fh:
+            if line[0] == ">":
+                kept[line[1]] += 1
+    genome_kept = kept["p"] / inp["pairs"]
+    cont_dropped = 1 - kept["c"] / inp["contaminant_pairs"]
+    check(genome_kept >= 0.99, f"read_filter kept {genome_kept:.4f} of the genome's pairs")
+    check(cont_dropped >= 0.90,
+          f"read_filter dropped {cont_dropped:.4f} of the contaminant's pairs")
+
+    # -- the twin runs against the CPU's ------------------------------------
+    proc, cpu_dir, log = worker
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        log.close()
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        with open(os.path.join(workdir, "cpu_worker_tools.log")) as fh:
+            raise SmokeFailure(f"the tools' CPU worker exited with {rc}: {fh.read()[-3000:]}")
+    with open(os.path.join(cpu_dir, "runs.json")) as fh:
+        cpu_runs = json.load(fh)
+    compared = {}
+    for name, r in twins.items():
+        if name in ("pathracer", "mts"):
+            a, b = os.path.join(card7, "tools", name), os.path.join(cpu7, "tools", name)
+        else:
+            a, b = os.path.join(out, "twins", name), os.path.join(cpu_dir, name)
+            check(r["printed"] == cpu_runs[name]["printed"],
+                  f"{name}: the card's and the CPU's printed lines differ")
+        compared[name] = {"files": same_trees(name, a, b), "card_s": r["wall_s"]}
+        if name in cpu_runs:
+            compared[name]["cpu_s"] = cpu_runs[name]["wall_s"]
+    for name in (*DEVICE_TWINS, "mts"):
+        check(twins[name]["launches"] > 0 or dev.type == "cpu",
+              f"{name}: the kernel was not launched")
+    check(json.loads(twins["gchecker"]["printed"])["n_contigs"] > 0,
+          "gchecker: no contig of 500 nt or more")
+    check(twins["pathracer"]["printed"].splitlines()[-1].split()[0] != "0",
+          "pathracer: the corona profile has no hit")
+    launches = {**{name: r["launches"] for name, r in full.items()},
+                "gmapper": twins["gmapper"]["launches"], "mts": twins["mts"]["launches"],
+                "corrector_sam_map": twins["sam_map"]["launches"]}
+    for name, n in launches.items():
+        check(n > 0 or dev.type == "cpu", f"{name}: the kernel was not launched")
+    rec = {
+        "phase": "tools", "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "dataset": {"isolate_pairs": inp["pairs"], "subset_pairs": inp["subset_pairs"],
+                    "contaminant": {"genome_nt": CONTAMINANT_NT, "coverage": CONTAMINANT_COV,
+                                    "pairs": inp["contaminant_pairs"]}},
+        "wall_s": {**{name: r["wall_s"] for name, r in full.items()},
+                   **{name: r["wall_s"] for name, r in twins.items()},
+                   "card_side": sum(r["wall_s"] for r in (*full.values(), *twins.values())),
+                   "checks_s": time.perf_counter() - t_card, "waited_for_cpu_s": waited},
+        "unique_kmers": {"k55": unique[55], "k21": unique[21]},
+        "kmer_estimating": {"estimate": est, "relative_error": hll_err},
+        "read_filter": {"genome_pairs_kept": genome_kept, "contaminant_pairs_dropped":
+                        cont_dropped, "printed": full["read_filter"]["printed"].strip()},
+        "gchecker": json.loads(twins["gchecker"]["printed"]),
+        "printed": {name: twins[name]["printed"].strip().splitlines()[-1]
+                    for name in ("gmapper", "gsimplifier", "corrector_reads", "corrector_sam",
+                                 "spaligner", "pathracer", "mts")},
+        "card_against_cpu": compared, "tolerance": 0,
+        "launches": launches,
+        "launch_shapes": {f"{R}x{L} k={k}{' strand' if strand else ''}": n
+                          for (R, L, k, strand), n in sorted(shapes.items())},
+    }
     return rec, launches, shapes
 
 
@@ -2358,7 +2736,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
         gap_count: int = 30, total_tolerance: float = 0.02, meta_sizes=META_SIZES,
         small_sizes=None, rna_sizes=None):
-    """All phases on `dev`; returns the kernels line.  Raises on any failure.
+    """All phases on `dev` (16 after 15, 13 last); returns the kernels line.
+    Raises on any failure.
     total_tolerance: how far the contigs' total may be from the genome size
     (a rehearsal on a small genome, most of it planted repeats, needs more);
     meta_sizes, small_sizes: the genomes of phase 9 and the sets of phases 9
@@ -2369,7 +2748,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
 
     small_sizes = dict(SMALL_SIZES, **(small_sizes or {}), gap_genome=gap_genome,
                        gap_count=gap_count)
-    rna_sizes = dict(RNA_SIZES, **(rna_sizes or {}))
+    rna_sizes = dict(RNA_SIZES, **(rna_sizes or {}), gap_genome=gap_genome, gap_count=gap_count)
     t0 = time.perf_counter()
     emit(phase_toolchain(dev))
     kern = phase_kernels(dev, main_shapes, rand_R=rand_R)
@@ -2377,7 +2756,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     observed = collections.Counter()
     launches = {}
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
-    worker = worker7 = cli7 = None
+    worker = worker7 = worker16 = cli7 = None
     try:
         # the CPU side of phase 15 (about 800 s of CPU work) runs from here
         # on, in a process of its own
@@ -2385,6 +2764,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         CK.canonical_window_keys.launch_shapes = observed
         rec, launches["construction"], state = phase_main_path(
             dev, workdir, genome_size, coverage, subset_pairs, seed)
+        isolate = state.pop("isolate")
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         rec, launches["mapping"] = phase_mapping(dev, state, subset_pairs, seed)
@@ -2438,6 +2818,9 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         rec = phase_card_against_cpu(workdir, card_runs, worker)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
+        # phase 16's CPU side runs during phase 14, in a process of its own
+        tools_in = tools_inputs(workdir, seed, isolate, gap_state)
+        worker16 = start_tools_worker(workdir, tools_in)
         # phase 15's CLI runs go on in processes of their own during phase 14
         card7 = os.path.join(workdir, "card_side_slice7")
         files7 = _slice7_inputs(os.path.join(card7, "inputs"), seed, rna_sizes)
@@ -2452,12 +2835,18 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
+        rec, counts, shapes = phase_tools(dev, workdir, tools_in, isolate, worker16, card7,
+                                          files7, worker7[1])
+        launches.update(counts)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
     finally:
         CK.canonical_window_keys.launch_shapes = None
         if cli7 is not None:          # its processes end before the script does
             with contextlib.suppress(BaseException):
                 cli7()
-        for w in (worker, worker7):
+        for w in (worker, worker7, worker16):
             if w is not None:
                 if w[0].poll() is None:
                     w[0].kill()
@@ -2482,10 +2871,12 @@ def main(argv=None) -> int:
         print("chip_smoke: the spades_tpu_torch package is not beside this script",
               file=sys.stderr)
         return 2
-    if args.cpu_worker:          # the CPU side of phases 9 to 11 or 15, started by `run`
+    if args.cpu_worker:          # the CPU side of phases 9 to 11, 15 or 16, started by `run`
         sys.path.insert(0, HERE)
         if args.runs == "slice7":
             return slice7_worker(args.cpu_worker, args.seed, json.loads(args.sizes))
+        if args.runs == "tools":
+            return tools_worker(args.cpu_worker, json.loads(args.sizes))
         return cpu_worker(args.cpu_worker, args.seed, json.loads(args.sizes), args.gfa or None)
     import torch
 

@@ -95,6 +95,57 @@ def read_sequences(paths: str | Iterable[str]) -> Iterator[str]:
             yield rec.seq
 
 
+def read_batches(paths: str | Iterable[str], batch_size: int = 65536):
+    """Stream ReadBatches straight from files with no per-read Python objects.
+
+    Native parser (flat ASCII pool + offsets) -> vectorized LUT encode ->
+    padded (R, L) batch scatter: the ingest path of the counting tools (the
+    role of SPAdes' binary-read streaming,
+    `io/dataset_support/read_converter.hpp`).  A `.bz2` file, or a machine
+    without the native library, goes through the record parser instead, as
+    in the JAX package."""
+    import numpy as np
+
+    from ..core import dna
+    from ..core.reads import ReadBatch, batch_iter
+    from .. import native as _native
+
+    if isinstance(paths, (str, os.PathLike)):
+        paths = [paths]
+    lut = np.full(256, dna.NCODE, np.uint8)
+    for i, b in enumerate(b"ACGT"):
+        lut[b] = i
+        lut[ord(chr(b).lower())] = i
+
+    for p in paths:
+        res = None if str(p).endswith(".bz2") else _native.read_fastx_native(p)
+        if res is None:
+            yield from batch_iter(read_sequences(p), batch_size=batch_size)
+            continue
+        _names, seq, soff = res
+        codes_all = lut[seq]
+        lengths_all = np.diff(soff).astype(np.int64)
+        n = len(lengths_all)
+        for lo in range(0, n, batch_size):
+            hi = min(lo + batch_size, n)
+            lens = lengths_all[lo:hi]
+            R = hi - lo
+            L = max(int(lens.max(initial=1)), 1)
+            L = ((L + 7) // 8) * 8
+            flat = codes_all[soff[lo] : soff[hi]]
+            rows = np.repeat(np.arange(R), lens)
+            cols = np.arange(len(flat)) - np.repeat(
+                (soff[lo:hi] - soff[lo]).astype(np.int64), lens
+            )
+            codes = np.zeros((R, L), np.uint8)
+            n_mask = np.zeros((R, L), bool)
+            codes[rows, cols] = flat
+            nm = codes >= dna.NCODE
+            codes[nm] = 0
+            n_mask |= nm
+            yield ReadBatch(codes=codes, lengths=lens.astype(np.int32), n_mask=n_mask)
+
+
 def write_fasta(path: str, records: Iterable[tuple[str, str]], width: int = 60) -> None:
     """Write (name, seq) pairs as FASTA wrapped at `width` columns."""
     opener = gzip.open if str(path).endswith(".gz") else open

@@ -19,9 +19,10 @@ with read error correction (BayesHammer by default, IonHammer under
 after it; rna, corona and sewage skip it), with or without repeat resolution,
 careful mode (`--careful`, `--mismatch-correction`), long reads (`--pacbio`,
 `--nanopore`, `--sanger`), a GFA start (`--assembly-graph`) and
-`--series-analysis`.  The two options whose code is not ported yet
-(`--read-cov-threshold`, `--num-processes`) raise `NotImplementedError`
-naming the ROADMAP item that ports them; nothing is skipped silently.
+`--series-analysis`, and `--read-cov-threshold` (the reads' median k-mer
+coverage on the device, `tools/read_filter.py`).  The one option whose code is
+not ported yet (`--num-processes` above 1) raises `NotImplementedError`
+naming the ROADMAP item that ports it; nothing is skipped silently.
 """
 from __future__ import annotations
 
@@ -178,7 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
     adv.add_argument("--mismatch-correction", dest="mismatch_correction", action="store_true",
                      help="run post-assembly mismatch correction (implied by --careful)")
     adv.add_argument("--read-cov-threshold", type=float, default=None, metavar="C",
-                     help="drop reads whose median k-mer coverage is below C (not ported yet)")
+                     help="drop reads whose median k-mer coverage is below C")
     adv.add_argument("--read-buffer-size", type=int, default=None, help="accepted for parity (reads are streamed in device-sized batches regardless)")
     adv.add_argument("--large-genome", action="store_true", help="accepted for parity")
     adv.add_argument("--configs-dir", default=None, help="accepted for parity (per-mode configs are dataclasses here)")
@@ -201,9 +202,6 @@ def detect_mode(args) -> str:
 def refuse_unported(args) -> None:
     """Raise `NotImplementedError` for every option whose code is not ported
     yet, naming the ROADMAP item that ports it."""
-    if args.read_cov_threshold:
-        raise NotImplementedError(
-            "--read-cov-threshold (tools/read_filter.py) is not ported yet (ROADMAP A14)")
     if args.num_processes > 1:
         raise NotImplementedError(
             "--num-processes > 1 (multi-process runs) is not ported yet (ROADMAP A15)")
@@ -461,6 +459,21 @@ def main(argv=None) -> int:
             k_list = k_list[: k_list.index(stop_k) + 1]
             log.info("--stop-after %s: k ladder truncated", args.stop_after)
     log.info("read length=%d, k ladder=%s", rl, k_list)
+
+    if args.read_cov_threshold:
+        # read_cov_threshold (options_parser.py): drop reads whose median
+        # k-mer coverage is below the threshold before assembly; as in the
+        # JAX package, only `reads` are filtered and `paired_libs` go on whole
+        from ..ops.count import count_sequences
+        from ..tools.read_filter import read_median_coverage
+
+        fk = min(21, k_list[0])
+        kc = count_sequences(reads, fk, device=device)
+        med = read_median_coverage(reads, fk, kc, device=device)
+        keep = med >= args.read_cov_threshold
+        log.info("read coverage filter: %d/%d reads kept (threshold %.1f)",
+                 int(keep.sum()), len(reads), args.read_cov_threshold)
+        reads = [r for r, k_ in zip(reads, keep) if k_]
 
     cov_cutoff = 0
     cut_src = args.hidden_cov_cutoff or args.cov_cutoff

@@ -93,16 +93,17 @@ def error_qualities(reads: np.ndarray, clean: np.ndarray, seed: int) -> np.ndarr
 
 
 def write_fastq(path: str, reads: np.ndarray, mate: int,
-                quals: np.ndarray | None = None) -> None:
-    """Write (n, rl) uint8 codes as FASTQ records `@p<i>/<mate>`, with the
-    (n, rl) ASCII qualities `quals`, else quality I throughout."""
+                quals: np.ndarray | None = None, prefix: str = "p") -> None:
+    """Write (n, rl) uint8 codes as FASTQ records `@<prefix><i>/<mate>`, with
+    the (n, rl) ASCII qualities `quals`, else quality I throughout."""
     acgt = np.frombuffer(b"ACGT", np.uint8)
     seqs = acgt[reads]
     qual = b"I" * reads.shape[1]
+    name = prefix.encode()
     with open(path, "wb") as fh:
         for i in range(seqs.shape[0]):
             q = qual if quals is None else quals[i].tobytes()
-            fh.write(b"@p%d/%d\n%s\n+\n%s\n" % (i, mate, seqs[i].tobytes(), q))
+            fh.write(b"@%s%d/%d\n%s\n+\n%s\n" % (name, i, mate, seqs[i].tobytes(), q))
 
 
 def _fr_pairs(rng, genome: np.ndarray, cov: float, rl: int, err: float, insert_mean: int,

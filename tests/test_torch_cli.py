@@ -132,24 +132,28 @@ def test_yaml_emitter_quotes_what_yaml_would_misread():
 
 
 @pytest.mark.parametrize("extra, item", [
-    # the RNA, bio/corona and series-analysis options are ported: each of
-    # their former cases keeps its flags and meets one of the two refusals left
+    # the RNA, bio/corona and series-analysis options and --read-cov-threshold
+    # are ported: each former case keeps its flags and meets the refusal left
     (["--rnaviral", "--num-processes", "2"], "A15"),    # error correction is the default
-    (["--only-error-correction", "--rna", "--read-cov-threshold", "3"], "A14"),
+    (["--only-error-correction", "--rna", "--read-cov-threshold", "3",
+      "--num-processes", "2"], "A15"),
     (["--iontorrent", "--bio", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--read-cov-threshold", "3", "--num-processes", "2"], "A15"),
     (["--only-assembler", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--rna", "--fl-rna", "lr.fq", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--rna", "--fl-rna", "lr.fq", "--read-cov-threshold", "3",
+      "--num-processes", "2"], "A15"),
     (["--only-assembler", "--meta", "--series-analysis", "s.yaml", "--num-processes", "2"],
      "A15"),
     (["--only-assembler", "--nanopore", "lr.fq", "--custom-hmms", "p.hmm",
-      "--read-cov-threshold", "3"], "A14"),
+      "--read-cov-threshold", "3", "--num-processes", "2"], "A15"),
     (["--only-assembler", "--fl-rna", "lr.fq", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--custom-hmms", "p.hmm", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--custom-hmms", "p.hmm", "--read-cov-threshold", "3",
+      "--num-processes", "2"], "A15"),
     (["--only-assembler", "--assembly-graph", "g.gfa", "--rna", "--num-processes", "2"], "A15"),
-    (["--careful", "--corona", "--read-cov-threshold", "3"], "A14"),
+    (["--careful", "--corona", "--read-cov-threshold", "3", "--num-processes", "2"], "A15"),
     (["--mismatch-correction", "--rnaviral", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--meta", "--ss", "rf", "--read-cov-threshold", "3"], "A14"),
+    (["--only-assembler", "--meta", "--ss", "rf", "--read-cov-threshold", "3",
+      "--num-processes", "2"], "A15"),
     (["--only-assembler", "--rna", "--ss", "fr", "--num-processes", "2"], "A15"),
     (["--only-assembler", "--plasmid", "--num-processes", "4"], "A15"),
 ])

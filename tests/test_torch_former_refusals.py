@@ -10,6 +10,10 @@ a GFA written by the JAX package, and a series-analysis config over k-mer
 profiles of two halves of the reads.  Every file each run writes must be
 equal, the GFA but for its header line (tolerance 0); the series dumps go to
 paths of each package's own config and must be equal too.
+
+The CLI refused `--read-cov-threshold` (the cases of
+`test_torch_cli.py::test_unported_options_raise` that named A14); it now runs
+on the same reads, written as FASTA, through both CLIs with equal files.
 """
 import dataclasses
 import os
@@ -20,11 +24,14 @@ import pytest
 from spades_tpu.core import dna as j_dna
 from spades_tpu.hmm import io as j_hmm
 from spades_tpu.mts.multiplicity import profiles_from_read_sets
+from spades_tpu.pipeline import main as j_main
 from spades_tpu.pipeline import run as j_run
 from spades_tpu_torch import convert
+from spades_tpu_torch.pipeline import main as t_main
 from spades_tpu_torch.pipeline import run as t_run
 from spades_tpu_torch.pipeline import stages as t_stage_rt
 from spades_tpu_torch.tools import synthetic
+from tests.test_torch_cli_modes import _cli_both
 from tests.test_torch_modes_rna import assert_same_run
 from tests.test_torch_pipeline import GFA, one_torch_thread
 
@@ -119,3 +126,24 @@ def test_former_refusals_match_the_reference(tmp_path, inputs, case):
     if kw.get("mode") == "rna":
         assert "transcripts.fasta" in names
     assert ("ss_edge_split" in stages) == (kw.get("mode") == "rna" and bool(kw.get("ss")))
+
+
+@pytest.mark.parametrize("extra", [["--only-assembler"], ["--careful"]])
+def test_read_cov_threshold_cli_matches_the_reference(tmp_path, inputs, extra):
+    """The former refusal `--read-cov-threshold 3`, with error correction
+    (and careful mode) or without it, at k=21; the log's filter line too."""
+    paths = []
+    for mate, reads in ((1, inputs["libs"][0][0]), (2, inputs["libs"][0][1])):
+        paths.append(str(tmp_path / f"r{mate}.fa"))
+        with open(paths[-1], "w") as fh:
+            fh.writelines(f">p{i}/{mate}\n{r}\n" for i, r in enumerate(reads))
+    args = ["-1", paths[0], "-2", paths[1], "-k", "21", "--read-cov-threshold", "3", *extra]
+    jdir, tdir, names = _cli_both(tmp_path, j_main.main, t_main.main, args)
+    assert "contigs.fasta" in names and "scaffolds.fasta" in names
+    assert ("corrected/lib1_1.cor.fasta" in names) == ("--careful" in extra)
+    found = {}
+    for name, d in (("j", jdir), ("t", tdir)):
+        with open(os.path.join(d, "spades.log")) as fh:
+            found[name] = [ln.split(": ", 1)[1] for ln in fh.read().splitlines()
+                           if "read coverage filter" in ln]
+    assert found["t"] == found["j"] and len(found["t"]) == 1

@@ -293,3 +293,62 @@ def test_mismatch_votes_cuda_match_plain(cuda, monkeypatch):
     assert correct_mismatches(g, store=store, device=cuda) == \
         correct_mismatches(g2, store=store, device="cpu")
     assert np.array_equal(g.seq_pool, g2.seq_pool)
+
+
+@pytest.mark.parametrize("k", [21, 33, 55, 127])
+def test_hll_registers_cuda_match_cpu(cuda, k):
+    """The HLL registers on the card (the kernel's windows) equal the plain
+    version's on the CPU, tolerance 0; the kernel is launched once."""
+    from spades_tpu_torch.ops import hll
+
+    pc, pn, lengths, L = _random_batch(11 + k, 512, 152, k).packed()
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pc, pn, lengths)]
+    want = hll.hll_registers(*cpu, L, k)
+    before = CK.canonical_window_keys.launches
+    got = hll.hll_registers(*(a.to(cuda) for a in cpu), L, k)
+    assert CK.canonical_window_keys.launches == before + 1
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k", [21, 55])
+def test_read_median_coverage_cuda_matches_cpu(cuda, monkeypatch, k):
+    from spades_tpu_torch.tools import read_filter
+    from spades_tpu_torch.tools.read_filter import read_median_coverage
+
+    monkeypatch.setenv("SPADES_HOST_COUNT_WINDOWS", "1")
+    reads, genome = _reads(5 + k)
+    reads = reads + [genome[:k], genome[:k - 1], "N" * 50, genome[100:180] + "R" + genome[181:240],
+                     genome[300:400].lower()]
+    kc = C.count_sequences(reads, k, device=cuda)
+    want = read_median_coverage(reads, k, C.count_sequences(reads, k, device="cpu"),
+                                device="cpu")
+    before = CK.canonical_window_keys.launches
+    monkeypatch.setattr(read_filter, "_BATCH_NT", 10_000)
+    got = read_median_coverage(reads, k, kc, device=cuda)
+    assert CK.canonical_window_keys.launches > before
+    assert np.array_equal(got, want) and want.max() > 0
+
+
+def test_kmer_tools_cuda_match_cpu(cuda, monkeypatch, tmp_path, capsys):
+    """kmercount, kmer_estimating and read_filter with --device cuda write and
+    print what --device cpu does."""
+    from spades_tpu_torch.tools import kmer_estimating, kmercount, read_filter
+
+    monkeypatch.setenv("SPADES_HOST_COUNT_WINDOWS", "1")
+    reads, _genome = _reads(3, n=800)
+    paths = [str(tmp_path / "r1.fa"), str(tmp_path / "r2.fa")]
+    for path, part in zip(paths, (reads[:400], reads[400:])):
+        with open(path, "w") as fh:
+            fh.writelines(f">r{i}\n{s}\n" for i, s in enumerate(part))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        wd = str(tmp_path / dev)
+        assert kmercount.main(paths + ["-k", "55", "--counts", "-w", wd, "--device", dev]) == 0
+        assert kmer_estimating.main(paths + ["-k", "55", "--device", dev]) == 0
+        assert read_filter.main(["-1", paths[0], "-2", paths[1], "-k", "21", "-c", "2", "-o",
+                                 wd + "_rf", "--device", dev]) == 0
+        files = [open(p, "rb").read() for p in (
+            f"{wd}/final_kmers", f"{wd}/final_kmers.counts", f"{wd}_rf/filtered_1.fasta",
+            f"{wd}_rf/filtered_2.fasta")]
+        out[dev] = (files, capsys.readouterr().out.replace(wd, "<out>"))
+    assert out["cuda"] == out["cpu"]
