@@ -67,7 +67,7 @@
    after phase 7, makes the small runs of phases 9 to 11 (the community cut
    to 300 kb, the hybrid run, every mode, the GFA start) on the CPU while
    the card works; every file each wrote must equal the card's.
-13. Every shape phases 3 to 16 gave the kernel that phase 2 did not hold
+13. Every shape phases 3 to 17 gave the kernel that phase 2 did not hold
    yet, against the plain version and timed (run last).
 14. rnaSPAdes at full width: a synthetic stranded (dUTP) transcriptome of
    3,000 genes (600 with a second isoform, 50 convergent pairs overlapping
@@ -104,6 +104,27 @@
    `mappings_to_sam`), `spaligner` (phase 10's long reads), `pathracer` (the
    first corona profile on the corona run's graph) and `mts` (the series
    run's contigs and samples); every file and printed line must be equal.
+17. The last single-device tools, their CLI runs in a process of their own
+   on the card during phase 14: `binspreader` on phase 9's K = 55 graph with
+   a seed binning of its segments of 2,500 nt or more and all of phase 9's
+   pairs (`--bin-dist --reads-split`, majority_length and max_likelihood
+   `--multi`; the share of shorter segments given the bin of the genome they
+   lie in), `splitter` on phase 6's K = 55 graph with 1,000,000 linked reads
+   of the isolate (`BX:Z:` barcodes, molecules of about 40 kb, 10 per
+   barcode; `--mapping-k 31`), `sewage` on a 30 kb reference with a tree of
+   2,000 lineages by 3,000 mutation columns and 500,000 reads of five
+   lineages (the mixture's lineages first, and lineages.csv equal to the JAX
+   package's on the same inputs), `cds_subgraphs` with 100 slices of 1-3 kb
+   of the community's genomes and 5 random queries (each subgraph holds the
+   edge its query maps to), a scripted `online_vis` session; in this
+   process `fill_positions` of the isolate onto phase 6's graph (every edge
+   of 1 kb or more placed, every non-repeat one covered whole) and
+   `count_batch_device(_tiled)` on 65,536 of its reads (tiles merged equal
+   the untiled count and `count_reads`, the card equal to the plain path);
+   a fourth CPU worker makes the same tool runs on a cut set (phase 9's
+   300 kb copy, the gap set with 60,000 linked reads and its positions,
+   50,000 of the wastewater reads): every file and printed line equal, the
+   abundances within 1e-9.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
@@ -379,7 +400,8 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
         "peak_device_gib": peak_gib,
     }
     isolate = {"paths": paths, "subset": subset, "pairs": int(n_pairs), "subset_pairs": sub,
-               "unique_k55": res_g.index.num_kmers}
+               "unique_k55": res_g.index.num_kmers, "genome": genome,
+               "batch": r1[:65536].copy()}          # phase 17's tiled count
     return rec, main_launches, {"store": store, "graph": res_g.graph, "n_pairs": n_pairs,
                                 "genome": genome, "r1": r1, "r2": r2, "c1": c1, "c2": c2,
                                 "isolate": isolate}
@@ -1173,7 +1195,13 @@ def phase_programs(dev, seqs, quals, graph, k: int, batch: int = 8192,
     return rec
 
 
-def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000, coverage: int = 40,
+# the gap set's depth: cut from 40x to 30x so that the script with phase 17
+# ends its last phase by 1,150 s (at 40x: 1,159.1 s on an H100 at 700 W)
+GAP_COVERAGE = 30
+
+
+def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000,
+              coverage: int = GAP_COVERAGE,
               n_gaps: int = 30, k: int = 55, rl: int = 150):
     import numpy as np
     import torch
@@ -1419,7 +1447,7 @@ def small_runs(seed: int, sizes: dict, gfa=None):
     yield ("meta", [21, 33, 55], lefts + rights,
            dict(mode="meta", paired_libs=[(lefts, rights)], read_length=rl), {"genomes": scaled})
     genome, r1, r2, _gaps = synthetic.make_gapped_dataset(
-        sizes["gap_genome"], 40, rl, 0.003, seed + 1, sizes["gap_count"])
+        sizes["gap_genome"], GAP_COVERAGE, rl, 0.003, seed + 1, sizes["gap_count"])
     lefts, rights = read_strings(r1), read_strings(r2)
     longs = hybrid_long_reads(genome, seed)
     yield ("hybrid", [55], lefts + rights,
@@ -1643,7 +1671,8 @@ def phase_meta(dev, workdir: str, seed: int, small_sizes: dict, sizes=META_SIZES
         "small_card_run": {"genomes_nt": small[4]["genomes"], "wall_s": small_rec["wall_s"],
                            "launches": small_launches, "contigs": small_rec["contigs"]},
     }
-    return rec, {"meta": launches, "meta_small": small_launches}, shapes, small_rec
+    community = {"genomes": genomes, "r1": r1, "r2": r2}      # phase 17's binspreader
+    return rec, {"meta": launches, "meta_small": small_launches}, shapes, small_rec, community
 
 
 def run_cli(dev, workdir: str, name: str, args: list, timeout_s: int = 600,
@@ -2040,7 +2069,7 @@ def _slice7_inputs(workdir: str, seed: int, sizes: dict) -> dict:
     files["series"] = synthetic.make_series(scaled, SERIES_COVERAGES, 150, 0.003, seed + 8)
     # phase 7's gap set (its raw pairs), for the CLI's --read-cov-threshold
     _g, r1, r2, _gaps = synthetic.make_gapped_dataset(
-        sizes["gap_genome"], 40, 150, 0.003, seed + 1, sizes["gap_count"])
+        sizes["gap_genome"], GAP_COVERAGE, 150, 0.003, seed + 1, sizes["gap_count"])
     for mate, reads in ((1, r1), (2, r2)):
         files[f"gap_{mate}"] = os.path.join(workdir, f"gap_{mate}.fq")
         synthetic.write_fastq(files[f"gap_{mate}"], reads, mate)
@@ -2658,10 +2687,578 @@ def phase_tools(dev, workdir: str, inp: dict, isolate: dict, worker, card7: str,
 
 
 # ---------------------------------------------------------------------------
+# 17. BinSPreader, SPlitteR, wastewater lineages, cds_subgraphs, online_vis,
+#     edge positions and the tiled count
+# ---------------------------------------------------------------------------
+
+# MetaBAT2's default minimum contig length: the seed binning bins segments of
+# this length or more, as users bin contigs before BinSPreader refines them
+MIN_BIN_NT = 2_500
+# a wastewater sample: a SARS-CoV-2-sized reference, a lineage tree of the
+# order of the usher barcode files, 150 bp reads of five lineages
+SEWAGE = {"genome_nt": 30_000, "lineages": 2_000, "columns": 3_000, "reads": 500_000,
+          "twin_reads": 50_000, "weights": [0.40, 0.25, 0.15, 0.12, 0.08]}
+# linked reads of the isolate (10x Chromium / TELL-Seq shape): 30x of 150 bp
+LINKED = {"reads": 1_000_000, "twin_reads": 60_000, "molecule_nt": 40_000,
+          "molecules_per_barcode": 10}
+CDS_ORFS, CDS_RANDOM = 100, 5
+# the wastewater check, from the JAX package's `estimate_abundances` on the
+# same inputs on the CPU (`python -m tests.test_torch_sewage 42`): the mixture's three
+# largest lineages come first in its order, its five lie among the top six
+# and hold 0.70 of the abundance (the tree's ancestors take the rest); its
+# lineages.csv (40 lineages, 4 decimals) has this SHA-256, and the port's
+# must equal it
+SEWAGE_TOP_IN_ORDER, SEWAGE_TOP_ALL, SEWAGE_TRUE_SHARE = 3, 6, 0.6
+SEWAGE_REFERENCE_SHA256 = {
+    42: "e8ff0364dd2f15f5e06f801c233a4f08e6280d6986809030d863c5b170bf17b2"}
+VIS_SESSION = "stats\ncontigs 20\nedge {e}\nseq {e} 60\nin {v_in}\nout {v_out}\ndraw {dot}\n" \
+              "frobnicate\nedge not-a-number\nexit\n"
+
+
+def _strings(codes_list) -> list:
+    """uint8 code arrays -> strings."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    return [acgt[c].tobytes().decode() for c in codes_list]
+
+
+def seed_binning(gfa: str, genomes, where, k: int = 55):
+    """Bins of the segments of `gfa`: each segment of MIN_BIN_NT or more goes
+    to the genome that holds most of its k-mers (`fill_positions` of the
+    segment onto the genomes as a k-mer graph, on `where`), and each shorter
+    one that lies whole in one genome (every window maps there as one
+    sequence) has that genome as its truth.  Returns (seed {name: bin},
+    truth {name: bin})."""
+    import numpy as np
+
+    from spades_tpu_torch.alignment.mapper import MappingEngine
+    from spades_tpu_torch.graph.graph import CondensedGraph
+    from spades_tpu_torch.graph.positions import fill_positions
+    from spades_tpu_torch.io.gfa import read_gfa
+
+    segs = read_gfa(gfa).segments
+    gen = CondensedGraph.from_sequences(_strings(genomes), k)
+    hits = {}
+    pos = fill_positions(gen, {n: s for n, s in segs.items() if len(s) >= MIN_BIN_NT},
+                         device=where)
+    for e, ps in pos.by_edge.items():
+        for p in ps:
+            hits.setdefault(p.name, np.zeros(len(genomes)))[e // 2] += p.ref_end - p.ref_start - k + 1
+    seed = {n: f"bin{int(np.argmax(h))}" for n, h in sorted(hits.items())}
+    short = sorted(n for n, s in segs.items() if k <= len(s) < MIN_BIN_NT)
+    edge, _start, votes = MappingEngine(gen, device=where).map_sequences([segs[n] for n in short])
+    truth = {n: f"bin{int(e) // 2}" for n, e, v in zip(short, edge, votes)
+             if e >= 0 and v == len(segs[n]) - k + 1}
+    return seed, truth
+
+
+def _write_tsv(path: str, rows: dict) -> str:
+    with open(path, "w") as fh:
+        fh.writelines(f"{n}\t{b}\n" for n, b in rows.items())
+    return path
+
+
+def tools17_set(d: str, seed: int, where, gfa: str, genomes, pairs, isolate_gfa: str,
+                isolate_genome, linked_reads: int, sewage_reads) -> dict:
+    """One set of phase 17's inputs under `d`: the metagenome's pairs as
+    FASTQ, its seed binning, ORFs of its genomes and random queries for
+    cds_subgraphs and a scripted online_vis session (over `gfa`); linked
+    reads of `isolate_genome` (over `isolate_gfa`); the wastewater reads
+    (`sewage_reads`, uint8 codes).  Returns the paths and truths."""
+    import numpy as np
+
+    from spades_tpu_torch.graph.from_gfa import graph_from_gfa
+    from spades_tpu_torch.io.gfa import read_gfa
+    from spades_tpu_torch.tools import synthetic
+
+    os.makedirs(d, exist_ok=True)
+    s = {"dir": d, "gfa": gfa, "isolate_gfa": isolate_gfa}
+    for mate, reads in ((1, pairs[0]), (2, pairs[1])):
+        s[f"meta_{mate}"] = os.path.join(d, f"meta_{mate}.fq")
+        synthetic.write_fastq(s[f"meta_{mate}"], reads, mate)
+    seed_bins, truth = seed_binning(gfa, genomes, where)
+    s["bins"] = _write_tsv(os.path.join(d, "seed_bins.tsv"), seed_bins)
+    s["short_truth"] = truth
+    s["seeded"] = len(seed_bins)
+    rng = np.random.default_rng(seed + 14)
+    queries = []
+    for i in range(CDS_ORFS):
+        gi = int(rng.integers(0, len(genomes)))
+        n = int(rng.integers(1_000, 3_001))
+        a = int(rng.integers(0, len(genomes[gi]) - n))
+        queries.append((f"orf{i}", genomes[gi][a : a + n]))
+    queries += [(f"random{i}", rng.integers(0, 4, int(rng.integers(1_000, 3_001))).astype(np.uint8))
+                for i in range(CDS_RANDOM)]
+    s["cds"] = os.path.join(d, "cds.fasta")
+    with open(s["cds"], "w") as fh:
+        fh.writelines(f">{n}\n{q}\n" for n, q in zip([n for n, _ in queries],
+                                                     _strings([q for _, q in queries])))
+    g = graph_from_gfa(read_gfa(gfa), 55)
+    e = max((int(x) for x in g.canonical_edge_ids()), key=lambda x: (int(g.e_len[x]), -x))
+    s["vis"] = os.path.join(d, "vis_session.txt")
+    s["dot"] = os.path.join(d, "vis.dot")
+    with open(s["vis"], "w") as fh:
+        fh.write(VIS_SESSION.format(e=e, v_in=int(g.e_end[e]), v_out=int(g.e_start[e]),
+                                    dot=s["dot"]))
+    reads, barcode = synthetic.make_linked_reads(
+        isolate_genome, linked_reads, seed + 10, molecule_nt=LINKED["molecule_nt"],
+        molecules_per_barcode=LINKED["molecules_per_barcode"])
+    s["linked"] = os.path.join(d, "linked.fq")
+    synthetic.write_fastq(s["linked"], reads, 1, prefix="l",
+                          comments=[f"BX:Z:{b}-1" for b in barcode.tolist()])
+    s["sewage_reads"] = os.path.join(d, "sewage_reads.fq")
+    synthetic.write_fastq(s["sewage_reads"], sewage_reads, 1, prefix="s")
+    return s
+
+
+def tools17_inputs(workdir: str, seed: int, where, isolate: dict, community: dict,
+                   gap_state: dict, small_meta: str, small_sizes: dict) -> dict:
+    """Phase 17's shared inputs, written before phase 14: the wastewater
+    reference and barcode CSV (both sides use the whole matrix), the
+    metagenome's and the isolate's data for the card's process, and the cut
+    set of the twin runs (phase 9's 300 kb copy, the gap set, 50,000
+    wastewater reads), the same bytes for the card and the CPU."""
+    import numpy as np
+
+    from spades_tpu_torch.tools import synthetic
+
+    d = os.path.join(workdir, "tools17_in")
+    os.makedirs(d)
+    inp = {"dir": d, "seed": seed, "device": where.type}
+    ref, cols, member = synthetic.make_lineage_barcodes(
+        SEWAGE["genome_nt"], SEWAGE["lineages"], SEWAGE["columns"], seed + 11)
+    lins = sorted(np.random.default_rng(seed + 12).choice(
+        np.arange(SEWAGE["lineages"] // 2, SEWAGE["lineages"]), 5, replace=False).tolist())
+    reads = synthetic.lineage_mixture_reads(ref, cols, member, lins, SEWAGE["weights"],
+                                            SEWAGE["reads"], seed + 13)
+    inp["mixture"] = {f"lin{i}": w for i, w in zip(lins, SEWAGE["weights"])}
+    inp["sewage_ref"] = os.path.join(d, "sewage_ref.fasta")
+    synthetic.write_fasta(inp["sewage_ref"], _strings([ref]))
+    inp["barcodes"] = os.path.join(d, "barcodes.csv")
+    synthetic.write_barcodes_csv(inp["barcodes"], cols, member)
+    # the card's process writes the full set from these arrays
+    inp["full_arrays"] = os.path.join(d, "full_arrays.npz")
+    np.savez(inp["full_arrays"], isolate=isolate["genome"], sewage=reads,
+             r1=community["r1"], r2=community["r2"],
+             **{f"genome{i}": g for i, g in enumerate(community["genomes"])})
+    # the tiled count's batch: its plain path runs in the CPU worker
+    inp["count_batch"] = os.path.join(d, "count_batch.npy")
+    np.save(inp["count_batch"], isolate["batch"])
+    inp["meta_gfa"] = os.path.join(workdir, "meta", GFA_NAME)
+    inp["isolate_gfa"] = os.path.join(workdir, "assembly", GFA_NAME)
+    # the twin set: phase 9's 300 kb copy, the gap set, the first wastewater reads
+    scaled = [s * small_sizes["meta_total"] // sum(META_SIZES) for s in META_SIZES]
+    small_g, s1, s2, _o = synthetic.make_community(scaled, META_COVERAGES, 150, 0.003, seed + 4)
+    inp["twin"] = tools17_set(os.path.join(d, "twin"), seed, where,
+                              os.path.join(small_meta, GFA_NAME), small_g, (s1, s2),
+                              os.path.join(gap_state["out"], GFA_NAME), gap_state["genome"],
+                              LINKED["twin_reads"], reads[: SEWAGE["twin_reads"]])
+    inp["twin"]["genome"] = os.path.join(d, "twin", "gap_genome.fasta")
+    synthetic.write_fasta(inp["twin"]["genome"], _strings([gap_state["genome"]]))
+    return inp
+
+
+def _tool17_runs(out: str, s: dict, inp: dict, where, suffix: str = "") -> dict:
+    """binspreader (majority_length, then max_likelihood --multi), splitter,
+    sewage, cds_subgraphs and online_vis over one set `s`, into `out/<name>`;
+    with the wastewater abundances at full precision."""
+    import io
+
+    from spades_tpu_torch.io.fastx import read_fastx, read_sequences
+    from spades_tpu_torch.sewage import estimate_abundances, read_barcodes_csv
+    from spades_tpu_torch.tools import binspreader, cds_subgraphs, online_vis, sewage, splitter
+
+    runs = {}
+    mates = ["-1", s["meta_1"], "-2", s["meta_2"]]
+    _tool("binspreader" + suffix, binspreader.main,
+          [s["gfa"], s["bins"], "-k", "55", *mates, "--bin-dist", "--reads-split"],
+          os.path.join(out, "binspreader" + suffix), runs, where, True)
+    _tool("binspreader_ml" + suffix, binspreader.main,
+          [s["gfa"], s["bins"], "-k", "55", *mates, "--bin-dist", "--reads-split",
+           "--assignment", "max_likelihood", "--multi"],
+          os.path.join(out, "binspreader_ml" + suffix), runs, where, True)
+    _tool("splitter" + suffix, splitter.main,
+          [s["isolate_gfa"], s["linked"], "-k", "55", "--mapping-k", "31"],
+          os.path.join(out, "splitter" + suffix), runs, where, True)
+    _tool("sewage" + suffix, sewage.main, [inp["sewage_ref"], inp["barcodes"], s["sewage_reads"]],
+          os.path.join(out, "sewage" + suffix), runs, where, True)
+    if suffix:          # the abundances at full precision, held within 1e-9
+        ref = next(iter(read_fastx(inp["sewage_ref"]))).seq
+        runs["abundances"] = estimate_abundances(
+            ref, list(read_sequences([s["sewage_reads"]])), read_barcodes_csv(inp["barcodes"]),
+            device=where)
+    _tool("cds_subgraphs" + suffix, cds_subgraphs.main, [s["gfa"], s["cds"], "-k", "55"],
+          os.path.join(out, "cds_subgraphs" + suffix), runs, where, True)
+    from spades_tpu_torch.graph.from_gfa import graph_from_gfa
+    from spades_tpu_torch.io.gfa import read_gfa
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with open(s["vis"]) as fh:
+        online_vis.repl(graph_from_gfa(read_gfa(s["gfa"]), 55), out=buf, inp=fh)
+    os.makedirs(os.path.join(out, "online_vis" + suffix))
+    shutil.move(s["dot"], os.path.join(out, "online_vis" + suffix, "vis.dot"))
+    runs["online_vis" + suffix] = {"wall_s": time.perf_counter() - t0,
+                                   "printed": buf.getvalue().replace(s["dot"], "<dot>")}
+    return runs
+
+
+def _positions_json(path: str, pos) -> str:
+    with open(path, "w") as fh:
+        json.dump({str(e): [str(p) for p in ps] for e, ps in pos.by_edge.items()}, fh)
+    return path
+
+
+def tools17_twin_runs(out: str, inp: dict, where) -> dict:
+    """The runs both sides make on the twin set, and the gap set's positions."""
+    from spades_tpu_torch.graph.from_gfa import graph_from_gfa
+    from spades_tpu_torch.graph.positions import fill_positions
+    from spades_tpu_torch.io.fastx import read_fastx
+    from spades_tpu_torch.io.gfa import read_gfa
+
+    s = inp["twin"]
+    runs = _tool17_runs(out, s, inp, where, suffix="_twin")
+    t0 = time.perf_counter()
+    g = graph_from_gfa(read_gfa(s["isolate_gfa"]), 55)
+    genome = next(iter(read_fastx(s["genome"]))).seq
+    os.makedirs(os.path.join(out, "positions_twin"))
+    _positions_json(os.path.join(out, "positions_twin", "positions.json"),
+                    fill_positions(g, {"genome": genome}, device=where))
+    runs["positions_twin"] = {"wall_s": time.perf_counter() - t0, "printed": ""}
+    return runs
+
+
+def tools17_card(workdir: str, inp: dict) -> int:
+    """The card's side of phase 17's tool runs (`--runs tools17_card`), in a
+    process of its own beside phase 14: the full set's inputs, then every
+    tool on it and on the twin set on the card, each counting its launches;
+    the kernel shapes of all of them."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    torch.set_num_threads(2)          # beside phase 14 and the CPU workers
+    dev = torch.device(inp["device"])        # "cpu" in a rehearsal
+    t0 = time.perf_counter()
+    arr = np.load(inp["full_arrays"])
+    genomes = [arr[f"genome{i}"] for i in range(len(META_SIZES))]
+    full = tools17_set(os.path.join(inp["dir"], "full"), inp["seed"], dev, inp["meta_gfa"],
+                       genomes, (arr["r1"], arr["r2"]), inp["isolate_gfa"], arr["isolate"],
+                       LINKED["reads"], arr["sewage"])
+    del arr
+    inputs_s = time.perf_counter() - t0
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    runs = _tool17_runs(os.path.join(workdir, "full"), full, inp, dev)
+    runs.update(tools17_twin_runs(os.path.join(workdir, "twins"), inp, dev))
+    rec = {"runs": runs, "inputs_s": inputs_s, "full": full,
+           "shapes": [[*key, n] for key, n in shapes.items()]}
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def count_batch_packed(path: str, dev):
+    """Phase 17's count batch (reads of uint8 codes) padded to 256, packed
+    on `dev`: (pc, pn, lengths, L) and its reads as strings."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.core.reads import ReadBatch
+
+    reads = _strings(np.load(path))
+    pc, pn, ln, L = ReadBatch.from_sequences(reads, pad_len_to=256).packed()
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pc, pn, ln)], L, reads
+
+
+def tools17_worker(workdir: str, inp: dict) -> int:
+    """The CPU side of phase 17 (`--runs tools17`): the twin runs, and the
+    plain path of the tiled count on its batch."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.ops import count as C
+
+    torch.set_num_threads(2)          # beside phase 14 and the other workers
+    runs = tools17_twin_runs(workdir, inp, torch.device("cpu"))
+    args, L, _reads = count_batch_packed(inp["count_batch"], torch.device("cpu"))
+    outs = (*C.count_batch_device(*args, L, 55), *C.count_batch_device_tiled(*args, L, 55, 512))
+    np.savez(os.path.join(workdir, "count_plain.npz"), *[o.numpy() for o in outs])
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(runs, fh)
+    return 0
+
+
+def start_tools17(workdir: str, inp: dict, side: str):
+    """Start phase 17's card process (`side` "card": on `inp["device"]`) or
+    its CPU worker (`side` "cpu")."""
+    out = os.path.join(workdir, f"{side}_side_tools17")
+    os.makedirs(out)
+    log = open(os.path.join(workdir, f"tools17_{side}.log"), "w")
+    env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": ""} if side == "cpu" else {}))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-worker", out, "--runs",
+         "tools17" if side == "cpu" else "tools17_card", "--sizes", json.dumps(inp)],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT, env=env)
+    return proc, out, log
+
+
+def _wait(name: str, worker, workdir: str, timeout_s: int = 900):
+    proc, out, log = worker
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    finally:
+        log.close()
+    if rc != 0:
+        with open(log.name) as fh:
+            raise SmokeFailure(f"phase 17's {name} process exited with {rc}: {fh.read()[-3000:]}")
+    with open(os.path.join(out, "runs.json")) as fh:
+        return json.load(fh), out, time.perf_counter() - t0
+
+
+def _adjacent(pos, a: int, b: int, conj, k: int) -> bool | None:
+    """Do oriented edges a then b follow each other in the genome (one
+    interval of each, b starting k - 1... k bases before a ends)?  None when
+    either has no interval."""
+    def spans(e):
+        c = min(e, int(conj[e]))
+        flip = c != e
+        return [(p.ref_start, p.ref_end, p.strand ^ flip) for p in pos.positions_of(c)]
+    sa, sb = spans(a), spans(b)
+    if not sa or not sb:
+        return None
+    return any((st_a == st_b == 0 and bs == ae - k) or (st_a == st_b == 1 and be == as_ + k)
+               for as_, ae, st_a in sa for bs, be, st_b in sb)
+
+
+def phase_tools17(dev, workdir: str, inp: dict, isolate: dict, card, worker):
+    """Phase 17: edge positions of the isolate's K = 55 graph and the tiled
+    count on the card in this process; the tool runs of the card's process
+    (started before phase 14) checked, and its twin runs held against the
+    CPU worker's."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.alignment.mapper import MappingEngine
+    from spades_tpu_torch.core import dna
+    from spades_tpu_torch.core.reads import ReadBatch
+    from spades_tpu_torch.graph.from_gfa import graph_from_gfa
+    from spades_tpu_torch.graph.positions import fill_positions
+    from spades_tpu_torch.io.fastx import read_fastx
+    from spades_tpu_torch.io.gfa import read_gfa
+    from spades_tpu_torch.ops import count as C
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.tools import kernel_shapes as KS
+
+    launches, wall = {}, {}
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    # -- edge positions: the launch count from 0, read right after -------------
+    g = graph_from_gfa(read_gfa(inp["isolate_gfa"]), 55)
+    genome = _strings([isolate["genome"]])[0]
+    CK.canonical_window_keys.launches = 0
+    t0 = time.perf_counter()
+    pos = fill_positions(g, {"genome": genome}, device=dev)
+    sync(dev)
+    wall["positions_s"] = time.perf_counter() - t0
+    launches["positions"] = CK.canonical_window_keys.launches
+    # an edge's first or last window belongs to the edge beside it when both
+    # hold that junction k-mer (the index keeps one copy): it shows as a
+    # one-window interval there, and the edge's own interval stops a base short
+    placed = {"edges_1kb": 0, "non_repeat": 0, "covered_whole": 0, "repeat": 0}
+    for e in g.canonical_edge_ids():
+        e = int(e)
+        if g.e_len[e] < 1_000 or not g.alive[e]:
+            continue
+        placed["edges_1kb"] += 1
+        ps = pos.positions_of(e)
+        check(ps, f"positions: edge {e} of {int(g.e_len[e])} nt has no interval")
+        for p in ps:          # an interval of exact k-mer hits spells the genome
+            seq = genome[p.ref_start : p.ref_end]
+            check(g.edge_seq(e)[p.edge_start : p.edge_end]
+                  == (seq if p.strand == 0 else dna.revcomp_str(seq)),
+                  f"positions: edge {e}'s interval {p} does not spell the genome")
+        runs = [p for p in ps if p.ref_end - p.ref_start > 55]
+        if len(runs) > 1:
+            placed["repeat"] += 1
+            continue
+        placed["non_repeat"] += 1
+        placed["covered_whole"] += bool(runs and runs[0].edge_start <= 1
+                                        and runs[0].edge_end >= g.e_len[e] - 1)
+    check(placed["covered_whole"] >= 0.95 * placed["non_repeat"] > 0, f"positions: {placed}")
+
+    # -- the tiled count: 65,536 reads of the isolate, padded to 256, k = 55 --
+    t0 = time.perf_counter()
+    args, L, reads = count_batch_packed(inp["count_batch"], dev)
+    CK.canonical_window_keys.launches = 0
+    got = C.count_batch_device(*args, L, 55)
+    tiles = C.count_batch_device_tiled(*args, L, 55, tile=512)
+    sync(dev)
+    launches["count_tiled"] = CK.canonical_window_keys.launches
+    CK.canonical_window_keys.launch_shapes = None
+
+    def runs_of(words, starts, nv):
+        w, st, n = words.cpu().numpy(), starts.cpu().numpy(), int(nv)
+        idx = np.flatnonzero(st[:n])
+        return C.KmerCounts(55, w[idx].astype(np.uint32),
+                            np.diff(np.append(idx, n)).astype(np.int64))
+
+    whole = runs_of(*got)
+    # each tile's run (its starts among its valid rows), pulled at once
+    w, st, nv = (x.cpu().numpy() for x in tiles)
+    T, tile = st.shape
+    first = np.flatnonzero(st & (np.arange(tile)[None, :] < nv[:, None]))
+    t_of = first // tile
+    end = np.append(first[1:], 0)
+    last = np.append(t_of[1:] != t_of[:-1], True)
+    end[last] = t_of[last] * tile + nv[t_of[last]]
+    bounds = np.searchsorted(t_of, np.arange(1, T))
+    merged = C.merge_counts([C.KmerCounts(55, a, b) for a, b in zip(
+        np.split(w.reshape(-1, w.shape[-1])[first].astype(np.uint32), bounds),
+        np.split((end - first).astype(np.int64), bounds))])
+    direct = C.count_reads([ReadBatch.from_sequences(reads, pad_len_to=256)], 55, device=dev)
+    for name, other in (("merged tiles", merged), ("count_reads", direct)):
+        check(np.array_equal(other.words, whole.words)
+              and np.array_equal(other.counts, whole.counts),
+              f"count: the {name} differ from the untiled count")
+    count_ms = {"untiled": KS.time_ms(lambda: C.count_batch_device(*args, L, 55), dev, 10),
+                "tiled": KS.time_ms(lambda: C.count_batch_device_tiled(*args, L, 55, 512),
+                                    dev, 10)}
+    wall["count_s"] = time.perf_counter() - t0
+
+    # -- the card's tool runs ------------------------------------------------
+    rec_card, card_dir, waited_card = _wait("card", card, workdir)
+    runs, full = rec_card["runs"], rec_card["full"]
+    for name in ("binspreader", "binspreader_ml", "splitter", "sewage", "cds_subgraphs"):
+        check(runs[name]["launches"] > 0 or dev.type == "cpu",
+              f"{name}: the kernel was not launched")
+        launches[name] = runs[name]["launches"]
+    for name in ("positions", "count_tiled"):
+        check(launches[name] > 0 or dev.type == "cpu", f"{name}: the kernel was not launched")
+    for R, L_, k, strand, n in rec_card["shapes"]:
+        shapes[(R, L_, k, bool(strand))] += n
+    bins = {}
+    for name in ("binspreader", "binspreader_ml"):
+        with open(os.path.join(card_dir, "full", name, "binning.tsv")) as fh:
+            got_bins = {}
+            for line in fh:
+                n, b = line.rstrip("\n").split("\t")
+                got_bins.setdefault(n, set()).add(b)
+        truth = full["short_truth"]
+        right = sum(1 for n, b in truth.items() if got_bins.get(n) == {b})
+        holds = sum(1 for n, b in truth.items() if b in got_bins.get(n, ()))
+        bins[name] = {"short_in_one_genome": len(truth), "given_its_bin_alone": right,
+                      "share": right / max(len(truth), 1), "share_holding_its_bin":
+                      holds / max(len(truth), 1), "segments_binned": len(got_bins),
+                      "seeded": full["seeded"],
+                      "printed": runs[name]["printed"].strip().splitlines()[-1]}
+    check(bins["binspreader"]["share"] > 0.5, f"binspreader: {bins['binspreader']}")
+    # splitter: the vertex states and the resolved pairs laid onto the genome
+    states, pairs = collections.Counter(), {"resolved": 0, "adjacent": 0, "not_adjacent": 0,
+                                            "unplaced": 0}
+    with open(os.path.join(card_dir, "full", "splitter", "vertex_results.tsv")) as fh:
+        next(fh)
+        for line in fh:
+            f = line.rstrip("\n").split("\t")
+            states[f[5]] += 1
+            for pair in filter(None, f[9].split(",")):
+                a, b = map(int, pair.split("#"))
+                pairs["resolved"] += 1
+                adj = _adjacent(pos, a, b, g.e_conj, 55)
+                pairs["unplaced" if adj is None else "adjacent" if adj else "not_adjacent"] += 1
+    # a random genome's repeats longer than k are edges between vertices of
+    # in- or out-degree 1, so few complex vertices (in and out >= 2) exist;
+    # the barcode index must hold the clouds all the same
+    entries = int(runs["splitter"]["printed"].split("barcode index: ")[1].split()[0])
+    check(entries > 0, "splitter: the barcode index is empty")
+    # the wastewater sample against the mixture, as the JAX package gives it
+    import hashlib
+
+    csv = read_bytes(os.path.join(card_dir, "full", "sewage", "lineages.csv"))
+    rows = [ln.split(",") for ln in csv.decode().splitlines()[1:]]
+    lineages = [n for n, _a in rows]
+    abund = {n: float(a) for n, a in rows}
+    sha = hashlib.sha256(csv).hexdigest()
+    if inp["seed"] in SEWAGE_REFERENCE_SHA256:
+        check(sha == SEWAGE_REFERENCE_SHA256[inp["seed"]],
+              f"sewage: lineages.csv is not the JAX package's ({len(rows)} lineages, "
+              f"sha256 {sha})")
+    mix = inp["mixture"]
+    order = sorted(mix, key=lambda n: -mix[n])
+    true_share = sum(abund.get(n, 0.0) for n in mix) / max(sum(abund.values()), 1e-12)
+    check(lineages[:SEWAGE_TOP_IN_ORDER] == order[:SEWAGE_TOP_IN_ORDER]
+          and set(mix) <= set(lineages[:SEWAGE_TOP_ALL]) and true_share >= SEWAGE_TRUE_SHARE,
+          f"sewage: {lineages[:8]} against the mixture {order} (share {true_share:.3f})")
+    # cds_subgraphs: each ORF's subgraph holds the edge it maps to
+    gm = graph_from_gfa(read_gfa(inp["meta_gfa"]), 55)
+    names = [r.name for r in read_fastx(full["cds"])]
+    edges = MappingEngine(gm, device=dev).map_sequences(
+        [r.seq for r in read_fastx(full["cds"])])[0]
+    printed = runs["cds_subgraphs"]["printed"]
+    for n, e in zip(names, edges.tolist()):
+        if n.startswith("random"):
+            check(f"{n}: no graph hit" in printed, f"cds_subgraphs: {n} hit the graph")
+            continue
+        check(e >= 0, f"cds_subgraphs: {n} maps nowhere")
+        seq = gm.edge_seq(min(e, int(gm.e_conj[e])))
+        with open(os.path.join(card_dir, "full", "cds_subgraphs", f"{n}.gfa")) as fh:
+            check(any(ln.split("\t")[2] == seq for ln in fh if ln.startswith("S\t")),
+                  f"cds_subgraphs: {n}'s subgraph lacks the edge it maps to")
+    vis = runs["online_vis"]["printed"]
+    check("segments" in vis and "unknown command 'frobnicate'" in vis and "error:" in vis
+          and os.path.getsize(os.path.join(card_dir, "full", "online_vis", "vis.dot")) > 0,
+          "online_vis: the session's transcript is wrong")
+
+    # -- the twin runs against the CPU's -------------------------------------
+    cpu_runs, cpu_dir, waited_cpu = _wait("CPU", worker, workdir)
+    compared = {}
+    for name, r in runs.items():
+        if not name.endswith("_twin"):
+            continue
+        check(r["printed"] == cpu_runs[name]["printed"],
+              f"{name}: the card's and the CPU's printed lines differ")
+        compared[name] = {"files": same_trees(name, os.path.join(card_dir, "twins", name),
+                                              os.path.join(cpu_dir, name)),
+                          "card_s": r["wall_s"], "cpu_s": cpu_runs[name]["wall_s"]}
+    # the tiled count: the card's output against the plain path's (the worker's)
+    with np.load(os.path.join(cpu_dir, "count_plain.npz")) as plain:
+        for i, out in enumerate((*got, *tiles)):
+            check(np.array_equal(out.cpu().numpy(), plain[f"arr_{i}"]),
+                  f"count: output {i} of the card differs from the plain path's")
+    a, b = runs["abundances"], cpu_runs["abundances"]
+    check([n for n, _ in a] == [n for n, _ in b]
+          and max((abs(x - y) for (_, x), (_, y) in zip(a, b)), default=0.0) <= 1e-9,
+          "sewage: the card's and the CPU's abundances differ by more than 1e-9")
+    rec = {
+        "phase": "tools17", "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
+        "dataset": {"sewage": SEWAGE, "mixture": mix, "linked": LINKED,
+                    "cds": {"orfs": CDS_ORFS, "random": CDS_RANDOM}},
+        "wall_s": {**wall, **{n: r["wall_s"] for n, r in runs.items() if n != "abundances"},
+                   "card_inputs_s": rec_card["inputs_s"], "waited_for_card_s": waited_card,
+                   "waited_for_cpu_s": waited_cpu},
+        "positions": placed, "count_ms": count_ms,
+        "count": {"windows": int(got[0].shape[0]), "unique": int(whole.num_unique),
+                  "tiles": int(tiles[0].shape[0])},
+        "binspreader": bins, "splitter": {"states": dict(states), "pairs": pairs,
+                                          "index_entries": entries,
+                                          "printed": runs["splitter"]["printed"].strip()},
+        "sewage": {"top": list(zip(lineages[:10], [abund[n] for n in lineages[:10]])),
+                   "mixture_share": true_share, "lineages": len(lineages),
+                   "lineages_csv_sha256": sha},
+        "card_against_cpu": compared, "tolerance": {"files": 0, "abundances": 1e-9},
+        "launches": launches,
+        "launch_shapes": {f"{R}x{L_} k={k}{' strand' if st else ''}": n
+                          for (R, L_, k, st), n in sorted(shapes.items())},
+    }
+    return rec, launches, shapes
+
+
+# ---------------------------------------------------------------------------
 # 13. the shapes the paths gave the kernel that phase 2 did not hold
 # ---------------------------------------------------------------------------
 
-def phase_observed_shapes(dev, observed, held, max_groups: int = 40) -> dict:
+def phase_observed_shapes(dev, observed, held, max_groups: int = 64) -> dict:
     """`observed` counts launches by (R, L, k, strand).  For every (L, k,
     strand) among them, its largest R is checked against the plain version
     and timed, unless `held` (the shapes of phase 2) has that very shape."""
@@ -2736,7 +3333,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
         gap_count: int = 30, total_tolerance: float = 0.02, meta_sizes=META_SIZES,
         small_sizes=None, rna_sizes=None):
-    """All phases on `dev` (16 after 15, 13 last); returns the kernels line.
+    """All phases on `dev` (16 after 15, 17 after 16, 13 last); returns the
+    kernels line.
     Raises on any failure.
     total_tolerance: how far the contigs' total may be from the genome size
     (a rehearsal on a small genome, most of it planted repeats, needs more);
@@ -2756,7 +3354,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     observed = collections.Counter()
     launches = {}
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
-    worker = worker7 = worker16 = cli7 = None
+    worker = worker7 = worker16 = worker17 = card17 = cli7 = None
     try:
         # the CPU side of phase 15 (about 800 s of CPU work) runs from here
         # on, in a process of its own
@@ -2797,7 +3395,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         card_runs = {}
-        rec, counts, shapes, card_runs["meta"] = phase_meta(
+        rec, counts, shapes, card_runs["meta"], community = phase_meta(
             dev, workdir, seed, small_sizes, sizes=meta_sizes)
         launches.update(counts)
         observed.update(shapes)
@@ -2821,6 +3419,15 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         # phase 16's CPU side runs during phase 14, in a process of its own
         tools_in = tools_inputs(workdir, seed, isolate, gap_state)
         worker16 = start_tools_worker(workdir, tools_in)
+        # phase 17's tool runs go on during phase 14 too: the card's in a
+        # process of its own, the CPU's twins in a fourth worker
+        t17 = time.perf_counter()
+        inp17 = tools17_inputs(workdir, seed, dev, isolate, community, gap_state,
+                               os.path.join(workdir, "card_side", "meta"), small_sizes)
+        del community
+        card17 = start_tools17(workdir, inp17, "card")
+        worker17 = start_tools17(workdir, inp17, "cpu")
+        inputs17_s = time.perf_counter() - t17
         # phase 15's CLI runs go on in processes of their own during phase 14
         card7 = os.path.join(workdir, "card_side_slice7")
         files7 = _slice7_inputs(os.path.join(card7, "inputs"), seed, rna_sizes)
@@ -2841,12 +3448,18 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
+        rec, counts, shapes = phase_tools17(dev, workdir, inp17, isolate, card17, worker17)
+        rec["wall_s"]["inputs_before_phase_14_s"] = inputs17_s
+        launches.update(counts)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
     finally:
         CK.canonical_window_keys.launch_shapes = None
         if cli7 is not None:          # its processes end before the script does
             with contextlib.suppress(BaseException):
                 cli7()
-        for w in (worker, worker7, worker16):
+        for w in (worker, worker7, worker16, worker17, card17):
             if w is not None:
                 if w[0].poll() is None:
                     w[0].kill()
@@ -2877,6 +3490,9 @@ def main(argv=None) -> int:
             return slice7_worker(args.cpu_worker, args.seed, json.loads(args.sizes))
         if args.runs == "tools":
             return tools_worker(args.cpu_worker, json.loads(args.sizes))
+        if args.runs in ("tools17", "tools17_card"):
+            work = tools17_worker if args.runs == "tools17" else tools17_card
+            return work(args.cpu_worker, json.loads(args.sizes))
         return cpu_worker(args.cpu_worker, args.seed, json.loads(args.sizes), args.gfa or None)
     import torch
 

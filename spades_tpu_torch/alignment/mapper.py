@@ -118,13 +118,14 @@ class MappingEngine:
 
     Stages share one engine per graph state and must drop it after mutating
     the graph.  `device` is where the device path runs (default: the CUDA
-    card, see `resolve_device`); it is resolved at first use."""
+    card, see `resolve_device`); it is resolved at first use.  `k` is the
+    index's k when it is not the graph's (a tool mapping at a smaller k)."""
 
     def __init__(self, g: CondensedGraph, index: EdgeIndex | None = None,
-                 device=None):
+                 device=None, k: int | None = None):
         self.g = g
         self._index = index
-        self._k = index.k if index is not None else g.k
+        self._k = index.k if index is not None else (k or g.k)
         self._device = device
         self._prep = None
         # wall seconds and row counts of the device index build, once it ran
@@ -145,7 +146,9 @@ class MappingEngine:
             self._device = resolve_device(self._device)
         return self._device
 
-    def _device_index(self):
+    def _device_index(self, build_on_device: bool = False):
+        """The device index tuple, built once.  build_on_device: extract and
+        sort it on the device whatever the pool's size (no host index)."""
         if self._prep is None:
             from ..parallel.sharded_mapping import (
                 build_index_device,
@@ -156,7 +159,7 @@ class MappingEngine:
             # lexsort scales with pool size); small pools: upload the host
             # index (cheap, and tools may have one)
             thresh = int(os.environ.get("SPADES_DEVICE_INDEX_POOL", 2_000_000))
-            if self._index is None and len(self.g.seq_pool) >= thresh:
+            if self._index is None and (build_on_device or len(self.g.seq_pool) >= thresh):
                 self._prep = build_index_device(self.g, self._k, self.device,
                                                 timings=self.index_timings)
             else:
@@ -208,6 +211,18 @@ class MappingEngine:
                     if m is not None:
                         edge[i], start[i], votes[i] = m.edge, m.start_offset, m.n_hits
         return edge, start, votes
+
+    def map_sequences(self, seqs, chunk_reads: int = 262144):
+        """Map a list of sequences (str or uint8 codes) on the device: one
+        ReadStore of them, the index extracted and sorted on the device from
+        the graph's pool (the host index is never built).  Returns (edge,
+        start, votes) int64 numpy arrays, edge == -1 for unmapped, equal to
+        `map_read_batch` on the host index read for read."""
+        from ..core.reads import ReadStore
+
+        self._device_index(build_on_device=True)
+        store = ReadStore.build(seqs, chunk_reads)
+        return self.map_store(store, force_device=True)
 
     def _map_chunk_device(self, ch, sub: int | None = None):
         """Map one store chunk in fixed sub-slices (bounded device-memory

@@ -1,10 +1,20 @@
 """Auxiliary graph structures over the assembly graph.
 
-Capability mirror of SPAdes' `src/common/auxiliary_graphs/`.  Ported so far:
-the scaffold graph, which the mate-pair scaffolder of repeat resolution
-builds (`paired/path_extend.py:build_scaffold_graph_2015`).  The contracted
-graph and the barcode index serve SPlitteR and are not here yet.
+Capability mirror of SPAdes' `src/common/auxiliary_graphs/` (contracted
+graph, scaffold graph) and `src/common/barcode_index/` (frame barcode index
+for linked/synthetic-long-read clouds), consumed by the mate-pair scaffolder
+of repeat resolution and by the SPlitteR repeat resolver
+(`src/projects/splitter/`, `tools/splitter.py`).
 """
 from .scaffold_graph import ScaffoldGraph
+from .contracted_graph import ContractedGraph, build_contracted_graph
+from .barcode_index import FrameBarcodeIndex, build_barcode_index, parse_barcode
 
-__all__ = ["ScaffoldGraph"]
+__all__ = [
+    "ScaffoldGraph",
+    "ContractedGraph",
+    "build_contracted_graph",
+    "FrameBarcodeIndex",
+    "build_barcode_index",
+    "parse_barcode",
+]

@@ -266,3 +266,47 @@ def canon_to_keys(canon: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         planes.append((hi - (1 << 31)) * (1 << 32) + lo)
     keys = torch.stack(planes)
     return torch.where(valid.reshape(1, -1), keys, KEY_SENTINEL)
+
+
+def loop_window_keys(seqs: list[str], k: int, dev: torch.device, skip_n: bool = True):
+    """Canonical keys, validity and strand of every window of `seqs` as the
+    JAX package's host loops pack them (`pack` of `dna.encode` codes, then
+    `canonicalize`), letters other than ACGT and acgt included: such a
+    letter encodes to code 4, whose own field stays 0 and whose bit 2 sets
+    the low bit of the base before it in the same word (it is lost at a
+    word's first base).  skip_n: a window holding an uppercase "N" is
+    invalid (read_filter's loop skips it); without it only windows past a
+    sequence's end are.  Plain torch on `dev`; returns (keys (nK, R*P),
+    valid (R, P), use_rc (R, P))."""
+    from . import dna
+
+    R, L = len(seqs), max(map(len, seqs))
+    letters = np.full((R, L), ord("N"), np.uint8)
+    for i, s in enumerate(seqs):
+        letters[i, : len(s)] = np.frombuffer(s.encode(), np.uint8)
+    c = torch.from_numpy(dna.encode(letters)).to(dev).to(torch.int64)
+    n_mask = torch.from_numpy(letters == ord("N") if skip_n else np.zeros((R, L), bool)).to(dev)
+    lengths = torch.tensor([len(s) for s in seqs], dtype=torch.int64, device=dev)
+    base = torch.where(c < 4, c, 0)
+    four = (c == 4).to(torch.int64)
+    P = L - k + 1
+
+    def field(i):  # the packed 2-bit field of window base i, (R, P)
+        f = base[:, i : i + P]
+        return f | four[:, i + 1 : i + 1 + P] if i % 16 != 15 and i + 1 < k else f
+
+    fwd, rc = [], []
+    for w in range(kmer_words(k)):
+        a = torch.zeros((R, P), dtype=torch.int64, device=dev)
+        b = torch.zeros_like(a)
+        for jj in range(min(16, k - 16 * w)):
+            j = 16 * w + jj
+            a = a | (field(j) << (30 - 2 * jj))
+            b = b | ((3 - field(k - 1 - j)) << (30 - 2 * jj))
+        fwd.append(a)
+        rc.append(b)
+    fwd, rc = torch.stack(fwd, dim=-1), torch.stack(rc, dim=-1)
+    use_rc = lex_less(rc, fwd)
+    canon = torch.where(use_rc[..., None], rc, fwd)
+    valid = window_valid(lengths, n_mask, k)
+    return canon_to_keys(canon, valid), valid, use_rc & valid

@@ -89,6 +89,55 @@ def count_batch_packed_unique(pc: torch.Tensor, pn: torch.Tensor,
     return count_batch_device_unique(keys)
 
 
+def _words_of_keys(sk: torch.Tensor, W: int) -> torch.Tensor:
+    """(nK, ...) int64 sort keys -> (..., W) int64-held uint32 words (the
+    sentinel key gives all-0xFFFFFFFF words, the JAX package's sentinel)."""
+    from .hll import key_words
+
+    return torch.stack(key_words(sk, W), dim=-1)
+
+
+def count_batch_device(pc: torch.Tensor, pn: torch.Tensor, lengths: torch.Tensor,
+                       L: int, k: int):
+    """One device pass over a packed read batch: every canonical window
+    sorted, with run-start flags; invalid windows are sentinel rows that
+    sort to the end.  Returns (sorted words (N, W) int64, starts (N,) bool,
+    n_valid () int64), the JAX package's `count_batch_device` with words as
+    int64."""
+    keys, valid = canonical_window_keys(pc, pn, lengths, L, k)
+    sk = keys[:, _lex_order(keys)]
+    starts = torch.ones(sk.shape[1], dtype=torch.bool, device=sk.device)
+    starts[1:] = (sk[:, 1:] != sk[:, :-1]).any(0)
+    return _words_of_keys(sk, K.kmer_words(k)), starts, valid.sum()
+
+
+def count_batch_device_tiled(pc: torch.Tensor, pn: torch.Tensor, lengths: torch.Tensor,
+                             L: int, k: int, tile: int = 512):
+    """Tiled device pass: the canonical windows of a packed read batch cut
+    into tiles of `tile` rows (the last padded with sentinel rows), each
+    tile sorted on its own: independent sorted runs, as SPAdes' per-thread
+    sort buffers (`kmer_splitter.hpp:75-120`); `merge_counts` sums them.
+    Returns (sorted words (T, tile, W) int64, starts (T, tile) bool, n_valid
+    (T,) int64 count of non-sentinel rows per tile), the JAX package's
+    `count_batch_device_tiled` with words as int64."""
+    keys, _ = canonical_window_keys(pc, pn, lengths, L, k)
+    n = keys.shape[1]
+    pad = (-n) % tile
+    if pad:
+        keys = torch.cat([keys, keys.new_full((keys.shape[0], pad), K.KEY_SENTINEL)], dim=1)
+    tiles = keys.reshape(keys.shape[0], -1, tile)
+    # stable sorts of every tile at once, from the least significant plane up
+    order = torch.sort(tiles[-1], dim=1, stable=True).indices
+    for j in range(tiles.shape[0] - 2, -1, -1):
+        order = order.gather(1, torch.sort(tiles[j].gather(1, order), dim=1,
+                                           stable=True).indices)
+    sk = tiles.gather(2, order[None].expand_as(tiles))
+    starts = torch.ones(sk.shape[1:], dtype=torch.bool, device=sk.device)
+    starts[:, 1:] = (sk[:, :, 1:] != sk[:, :, :-1]).any(0)
+    n_valid = (sk != K.KEY_SENTINEL).any(0).sum(1)
+    return _words_of_keys(sk, K.kmer_words(k)), starts, n_valid
+
+
 # ---------------------------------------------------------------------------
 # Device-resident run accumulation: per-batch unique runs stay on the device
 # and merge there; the host pulls ONE final table per k (SPAdes keeps its

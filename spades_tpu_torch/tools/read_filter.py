@@ -41,43 +41,13 @@ def _kernel_window_keys(seqs: list[str], k: int, dev: torch.device):
 
 
 def _spill_window_keys(seqs: list[str], k: int, dev: torch.device):
-    """Canonical keys and validity of every window as the reference's loop
-    packs them, for reads that hold another letter: it encodes to code 4,
-    whose own field stays 0 and whose bit 2 sets the low bit of the base
-    before it in the same word (it is lost at a word's first base); only a
-    window with an "N" is skipped.  Plain torch on `dev`."""
-    from ..core import dna
+    """Keys and validity of every window as the reference's loop packs them,
+    for reads that hold another letter (`core/kmers.py:loop_window_keys`:
+    code 4 spills into the base before it; a window with an "N" is skipped)."""
     from ..core import kmers as K
 
-    R, L = len(seqs), max(map(len, seqs))
-    letters = np.full((R, L), ord("N"), np.uint8)
-    for i, s in enumerate(seqs):
-        letters[i, : len(s)] = np.frombuffer(s.encode(), np.uint8)
-    c = torch.from_numpy(dna.encode(letters)).to(dev).to(torch.int64)
-    n_mask = torch.from_numpy(letters == ord("N")).to(dev)
-    lengths = torch.tensor([len(s) for s in seqs], dtype=torch.int64, device=dev)
-    base = torch.where(c < 4, c, 0)
-    four = (c == 4).to(torch.int64)
-    P = L - k + 1
-
-    def field(i):  # the packed 2-bit field of window base i, (R, P)
-        f = base[:, i : i + P]
-        return f | four[:, i + 1 : i + 1 + P] if i % 16 != 15 and i + 1 < k else f
-
-    fwd, rc = [], []
-    for w in range(K.kmer_words(k)):
-        a = torch.zeros((R, P), dtype=torch.int64, device=dev)
-        b = torch.zeros_like(a)
-        for jj in range(min(16, k - 16 * w)):
-            j = 16 * w + jj
-            a = a | (field(j) << (30 - 2 * jj))
-            b = b | ((3 - field(k - 1 - j)) << (30 - 2 * jj))
-        fwd.append(a)
-        rc.append(b)
-    fwd, rc = torch.stack(fwd, dim=-1), torch.stack(rc, dim=-1)
-    canon = torch.where(K.lex_less(rc, fwd)[..., None], rc, fwd)
-    valid = K.window_valid(lengths, n_mask, k)
-    return K.canon_to_keys(canon, valid), valid
+    keys, valid, _ = K.loop_window_keys(seqs, k, dev)
+    return keys, valid
 
 
 def _medians(keys: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,

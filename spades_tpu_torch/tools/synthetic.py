@@ -1,6 +1,7 @@
 """Synthetic data: a random genome with planted repeats and FR pairs, a mock
-metagenomic community, a chromosome with circular plasmids, and noisy long
-reads.
+metagenomic community, a chromosome with circular plasmids, noisy long
+reads, barcoded linked reads, and lineage barcodes with a wastewater-like
+mixture of lineages.
 
 `make_e2e_dataset` is a copy of the JAX package's benchmark generator
 (`bench.py:make_e2e_dataset`) so that the port's smoke run makes the same
@@ -93,9 +94,11 @@ def error_qualities(reads: np.ndarray, clean: np.ndarray, seed: int) -> np.ndarr
 
 
 def write_fastq(path: str, reads: np.ndarray, mate: int,
-                quals: np.ndarray | None = None, prefix: str = "p") -> None:
+                quals: np.ndarray | None = None, prefix: str = "p",
+                comments=None) -> None:
     """Write (n, rl) uint8 codes as FASTQ records `@<prefix><i>/<mate>`, with
-    the (n, rl) ASCII qualities `quals`, else quality I throughout."""
+    the (n, rl) ASCII qualities `quals`, else quality I throughout, and each
+    header followed by a space and `comments[i]` where given (a `BX:Z:` tag)."""
     acgt = np.frombuffer(b"ACGT", np.uint8)
     seqs = acgt[reads]
     qual = b"I" * reads.shape[1]
@@ -103,7 +106,9 @@ def write_fastq(path: str, reads: np.ndarray, mate: int,
     with open(path, "wb") as fh:
         for i in range(seqs.shape[0]):
             q = qual if quals is None else quals[i].tobytes()
-            fh.write(b"@%s%d/%d\n%s\n+\n%s\n" % (name, i, mate, seqs[i].tobytes(), q))
+            tail = b"" if comments is None else b" " + comments[i].encode()
+            fh.write(b"@%s%d/%d%s\n%s\n+\n%s\n" % (name, i, mate, tail, seqs[i].tobytes(),
+                                                      q))
 
 
 def _fr_pairs(rng, genome: np.ndarray, cov: float, rl: int, err: float, insert_mean: int,
@@ -406,3 +411,93 @@ def make_series(sizes, sample_coverages, rl: int, err: float, seed: int, shared:
     samples = [_pairs_of(rng, genomes, covs, rl, err, insert_mean, insert_sd)
                for covs in sample_coverages]
     return genomes, samples
+
+
+def _substitute(rng, reads: np.ndarray, err: float) -> None:
+    """Substitutions at rate `err`, in place (always another base)."""
+    hit = rng.random(reads.shape) < err
+    reads[hit] = (reads[hit] + rng.integers(1, 4, int(hit.sum()))) & 3
+
+
+def make_linked_reads(genome: np.ndarray, n_reads: int, seed: int, rl: int = 150,
+                      molecule_nt: int = 40_000, molecules_per_barcode: int = 10,
+                      reads_per_molecule: int = 50, err: float = 0.003):
+    """Linked reads, the shape of 10x Chromium / TELL-Seq libraries: DNA
+    molecules of log-normal length (mean `molecule_nt`, sigma 0.5) at random
+    positions of `genome` (uint8 codes), `molecules_per_barcode` molecules
+    sharing each barcode, `n_reads` reads of `rl` drawn uniformly inside the
+    molecules (about `reads_per_molecule` each), half of them reverse
+    complemented, with substitutions at `err`.
+    Returns (reads (n, rl) uint8, barcode (n,) int64 of each read)."""
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    n_mol = max(1, n_reads // reads_per_molecule)
+    mol_len = rng.lognormal(np.log(molecule_nt) - 0.125, 0.5, n_mol).astype(np.int64)
+    mol_len = np.clip(mol_len, 2 * rl, G)
+    mol_start = (rng.random(n_mol) * (G - mol_len + 1)).astype(np.int64)
+    mol_barcode = rng.permutation(n_mol) // molecules_per_barcode
+    mol = rng.integers(0, n_mol, n_reads)
+    start = mol_start[mol] + (rng.random(n_reads) * (mol_len[mol] - rl + 1)).astype(np.int64)
+    reads = genome[start[:, None] + np.arange(rl)]
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = (3 - reads[flip])[:, ::-1]
+    _substitute(rng, reads, err)
+    return reads, mol_barcode[mol]
+
+
+def make_lineage_barcodes(genome_nt: int, n_lineages: int, n_columns: int, seed: int):
+    """A random reference genome and a lineage tree, the shape of the usher
+    barcode files of wastewater tools: lineage 0 is the reference, every
+    later lineage a random earlier one plus at least one new mutation, with
+    `n_columns` mutations in all, at distinct positions.
+    Returns (reference (G,) uint8, columns (S, 3) int64 of (0-based
+    position, reference base, alternative base), membership (L, S) bool)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, genome_nt).astype(np.uint8)
+    pos = rng.choice(genome_nt, n_columns, replace=False).astype(np.int64)
+    alt = (ref[pos] + rng.integers(1, 4, n_columns)) & 3
+    columns = np.stack([pos, ref[pos].astype(np.int64), alt.astype(np.int64)], axis=1)
+    new = 1 + rng.multinomial(n_columns - (n_lineages - 1), np.full(n_lineages - 1,
+                                                                   1 / (n_lineages - 1)))
+    first = np.concatenate([[0], np.cumsum(new)])
+    member = np.zeros((n_lineages, n_columns), bool)
+    for i in range(1, n_lineages):
+        member[i] = member[int(rng.integers(0, i))]
+        member[i, first[i - 1] : first[i]] = True
+    return ref, columns, member
+
+
+def write_barcodes_csv(path: str, columns: np.ndarray, member: np.ndarray,
+                       names=None) -> None:
+    """The usher barcode CSV: a header `,A123T,...` (1-based positions) and
+    one row `<lineage>,0,1,...` per lineage."""
+    acgt = "ACGT"
+    names = names or [f"lin{i}" for i in range(member.shape[0])]
+    digits = np.where(member, ord("1"), ord("0")).astype(np.uint8)
+    cells = np.full((member.shape[0], 2 * member.shape[1]), ord(","), np.uint8)
+    cells[:, 1::2] = digits
+    with open(path, "w") as fh:
+        fh.write("," + ",".join(f"{acgt[r]}{p + 1}{acgt[a]}" for p, r, a in columns) + "\n")
+        for name, row in zip(names, cells):
+            fh.write(name + row.tobytes().decode() + "\n")
+
+
+def lineage_mixture_reads(ref: np.ndarray, columns: np.ndarray, member: np.ndarray,
+                          lineages, weights, n_reads: int, seed: int, rl: int = 150,
+                          err: float = 0.003) -> np.ndarray:
+    """`n_reads` reads of `rl` (uint8 codes) of a mixture of `lineages` at
+    `weights`: each read from one lineage's genome (the reference with that
+    lineage's mutations), uniform in position, half reverse complemented,
+    with substitutions at `err`."""
+    rng = np.random.default_rng(seed)
+    genomes = np.repeat(ref[None, :], len(lineages), axis=0)
+    for j, lin in enumerate(lineages):
+        cols = columns[member[lin]]
+        genomes[j, cols[:, 0]] = cols[:, 2]
+    which = rng.choice(len(lineages), n_reads, p=np.asarray(weights) / np.sum(weights))
+    start = rng.integers(0, len(ref) - rl + 1, n_reads)
+    reads = genomes[which[:, None], start[:, None] + np.arange(rl)]
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = (3 - reads[flip])[:, ::-1]
+    _substitute(rng, reads, err)
+    return reads

@@ -352,3 +352,76 @@ def test_kmer_tools_cuda_match_cpu(cuda, monkeypatch, tmp_path, capsys):
             f"{wd}_rf/filtered_2.fasta")]
         out[dev] = (files, capsys.readouterr().out.replace(wd, "<out>"))
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("k", [21, 55])
+def test_fill_positions_cuda_matches_cpu(cuda, monkeypatch, k):
+    """Edge positions: the device index, the kernel's windows in several row
+    batches and the search on the card, against the CPU path."""
+    from spades_tpu_torch.core import dna
+    from spades_tpu_torch.graph import positions as TP
+
+    monkeypatch.setattr(TP, "ROW_BASES", 512)
+    monkeypatch.setattr(TP, "ROWS_PER_BATCH", 3)
+    reads, genome = _reads(40 + k, G=6000, n=900, err=0.0)
+    g = construct_graph(reads, k, device="cpu").graph
+    seqs = {"g": genome, "rc": dna.revcomp_str(genome[500:4000]),
+            "masked": genome[:900] + "N" * 10 + genome[910:2000].lower()}
+    before = CK.canonical_window_keys.launches
+    got = TP.fill_positions(g, seqs, device=cuda)
+    assert CK.canonical_window_keys.launches > before
+    want = TP.fill_positions(g, seqs, device="cpu")
+    assert {e: [vars(p) for p in ps] for e, ps in got.by_edge.items()} == \
+        {e: [vars(p) for p in ps] for e, ps in want.by_edge.items()}
+    assert want.by_edge
+
+
+def test_barcode_index_cuda_matches_cpu(cuda):
+    """SPlitteR's barcode index: every read mapped in one pass through the
+    device index at mapping_k = 31 of a k = 55 graph, on the card and the CPU."""
+    from spades_tpu_torch.aux_graphs.barcode_index import build_barcode_index
+
+    reads, _genome = _reads(61, G=6000, n=1500, err=0.002)
+    g = construct_graph(reads, 55, device="cpu").graph
+    named = [(f"r{i} BX:Z:B{i % 40}-1", s) for i, s in enumerate(reads)]
+    before = CK.canonical_window_keys.launches
+    got = build_barcode_index(g, named, mapping_k=31, frame_size=500, device=cuda)
+    assert CK.canonical_window_keys.launches > before
+    want = build_barcode_index(g, named, mapping_k=31, frame_size=500, device="cpu")
+    for f in ("edge", "barcode", "count", "left_pos", "right_pos", "covered"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.barcode_names == want.barcode_names and got.num_entries > 0
+
+
+def test_sewage_votes_and_abundances_cuda_match_cpu(cuda):
+    """Allele votes (B8 scatter) equal on the card; the float64 NNLS within
+    1e-9 of the CPU's."""
+    from spades_tpu_torch.sewage import disentangle as S
+
+    reads, genome = _reads(77, G=3000, n=3000, err=0.003)
+    reads += ["N" * 30, genome[:10]]
+    before = CK.canonical_window_keys.launches
+    g, votes = S.allele_votes(genome, reads, device=cuda)
+    assert CK.canonical_window_keys.launches > before
+    assert np.array_equal(votes, S.allele_votes(genome, reads, device="cpu")[1])
+    rng = np.random.default_rng(3)
+    matrix = (rng.random((200, 300)) < 0.1).astype(float)
+    freq = np.clip(matrix.T @ rng.dirichlet(np.ones(200)) + rng.normal(0, 0.01, 300), 0, 1)
+    w = (rng.random(300) < 0.9).astype(float)
+    got = S.nnls_abundances(matrix, freq, w, device=cuda)
+    assert np.abs(got - S.nnls_abundances(matrix, freq, w, device="cpu")).max() <= 1e-9
+
+
+@pytest.mark.parametrize("k,tile", [(21, 512), (55, 512), (77, 100)])
+def test_count_batch_device_tiled_cuda_matches_cpu(cuda, k, tile):
+    batch = _random_batch(90 + k, 300, 160, k)
+    pc, pn, lengths, L = batch.packed()
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pc, pn, lengths)]
+    dev = [t.to(cuda) for t in host]
+    for fn, kw in ((C.count_batch_device, {}), (C.count_batch_device_tiled, {"tile": tile})):
+        before = CK.canonical_window_keys.launches
+        got = fn(*dev, L, k, **kw)
+        assert CK.canonical_window_keys.launches == before + 1
+        want = fn(*host, L, k, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

@@ -439,7 +439,12 @@ def test_import_scan_covers_the_new_modules():
            "ops/early_clip.py", "alignment/ss_coverage.py", "hmm/__init__.py", "hmm/io.py",
            "hmm/align.py", "mts/__init__.py", "mts/multiplicity.py", "mts/abundance.py",
            "mts/binning.py", "mts/series_analysis.py", "pipeline/rnaspades.py",
-           "pipeline/rnaviralspades.py", "pipeline/coronaspades.py"]
+           "pipeline/rnaviralspades.py", "pipeline/coronaspades.py",
+           "graph/synthetic.py", "graph/dot.py", "graph/positions.py", "graph/binning.py",
+           "utils/memory.py", "aux_graphs/barcode_index.py", "aux_graphs/contracted_graph.py",
+           "aux_graphs/vertex_resolver.py", "sewage/__init__.py", "sewage/disentangle.py",
+           "tools/splitter.py", "tools/binspreader.py", "tools/sewage.py",
+           "tools/cds_subgraphs.py", "tools/online_vis.py"]
     scanned = {str(p.relative_to(REPO / "spades_tpu_torch"))
                for p in (REPO / "spades_tpu_torch").rglob("*.py")}
     assert set(new) <= scanned
