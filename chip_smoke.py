@@ -70,19 +70,19 @@
 13. Every shape phases 3 to 17 gave the kernel that phase 2 did not hold
    yet, against the plain version and timed (run last).
 14. rnaSPAdes at full width: a synthetic stranded (dUTP) transcriptome of
-   3,000 genes (600 with a second isoform, 50 convergent pairs overlapping
-   at their 3' ends, poly-A tails, log-normal expression) as 750,000 pairs
+   2,000 genes (400 with a second isoform, 33 convergent pairs overlapping
+   at their 3' ends, poly-A tails, log-normal expression) as 500,000 pairs
    of 100 bp through `run_assembly(mode="rna", ss="rf")` over the CLI's K
    choice: the early A/T clipper and SSEdgeSplit at every K, the stage
    times, the kernel's launches, peak device memory, and transcripts.fasta
    laid onto the true transcripts (genes recovered, isoforms told apart,
    convergent pairs kept apart, poly-A left).
 15. The other modes of the last slice at K = 55, card against CPU: a
-   300-transcript copy of 14's set in rna mode with `ss="fr"` and with
+   190-transcript copy of 14's set in rna mode with `ss="fr"` and with
    `ss="rf"` plus full-length transcripts, `rnaspades --ss rf --fl-rna`
    (equal to that library call), `rnaviralspades` (error correction on),
    `coronaspades --custom-hmms` on a 30 kb coronavirus-like genome with
-   nested subgenomic RNAs at about 2,000x and 200 kb of host transcripts
+   nested subgenomic RNAs at about 1,000x and 200 kb of host transcripts
    (three amino profiles of 120, 200 and 300 states), `--bio --custom-hmms`
    on a 300 kb genome at 40x, and series analysis of phase 9's 300 kb
    community in three samples; every profile's best hit must spell its
@@ -125,6 +125,21 @@
    300 kb copy, the gap set with 60,000 linked reads and its positions,
    50,000 of the wastewater reads): every file and printed line equal, the
    abundances within 1e-9.
+18. Multi-GPU on torch.distributed, in a process of its own started before
+   phase 14 (the sharded paths of `spades_tpu_torch/parallel/`): (a) NCCL
+   at world size 1 on the card, the isolate of phase 3 at full size: the
+   sharded count of its (k+1)-mers and `construct_graph` under the group,
+   each equal to phase 3's single-device result (SHA-256 of the arrays), and
+   the group `map_reads_sharded` / `position_votes_sharded` /
+   `hit_filter_store` of 65,536 pairs equal to the single-device calls;
+   (b) two ranks on the one card under gloo (NCCL refuses two ranks on one
+   card), each in its own process: the same count and graph checks; then
+   `dryrun_multigpu(2, "cuda", "gloo")`, `dryrun_multihost` with two
+   processes, and `python -m spades_tpu_torch.pipeline.main -k 55 --careful
+   --num-processes 2` on phase 8's FASTQ as two rank processes, whose
+   corrected reads, contigs and scaffolds must equal phase 8's byte for
+   byte while rank 1 writes nothing.  Per-rank wall times, bytes sent and
+   B1 launches per rank are printed.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
@@ -137,6 +152,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -288,6 +304,23 @@ GRAPH_FIELDS = ("e_start", "e_end", "e_conj", "e_off", "e_len", "e_cov",
                 "alive", "seq_pool", "v_conj")
 
 
+def digest(*arrays) -> str:
+    """SHA-256 of arrays' dtypes, shapes and bytes."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def construction_digests(p1, graph) -> dict:
+    return {"p1": digest(p1.words, p1.counts),
+            "graph": {f: digest(getattr(graph, f)) for f in GRAPH_FIELDS}}
+
+
 def graph_checks(name: str, g) -> None:
     import numpy as np
 
@@ -401,7 +434,8 @@ def phase_main_path(dev, workdir: str, genome_size: int, coverage: int,
     }
     isolate = {"paths": paths, "subset": subset, "pairs": int(n_pairs), "subset_pairs": sub,
                "unique_k55": res_g.index.num_kmers, "genome": genome,
-               "batch": r1[:65536].copy()}          # phase 17's tiled count
+               "batch": r1[:65536].copy(),          # phase 17's tiled count
+               "digests": construction_digests(res_g.p1_counts, res_g.graph)}   # phase 18
     return rec, main_launches, {"store": store, "graph": res_g.graph, "n_pairs": n_pairs,
                                 "genome": genome, "r1": r1, "r2": r2, "c1": c1, "c2": c2,
                                 "isolate": isolate}
@@ -1379,6 +1413,7 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
     check(launches > 0 or dev.type == "cpu", "CLI: the canonical-windows kernel was not launched")
     with open(os.path.join(out, "run_spades.yaml")) as fh:
         yaml_lines = fh.read().count("\n")
+    gap_state["cli_fastq"], gap_state["cli_out"] = paths, out     # phase 18's CLI run
     return {"phase": "cli", "card": nvidia_smi_line() if dev.type == "cuda" else "cpu",
             "command": " ".join(os.path.relpath(c, workdir) if c.startswith(workdir) else c
                                 for c in cmd[1:]),
@@ -1866,8 +1901,8 @@ def phase_card_against_cpu(workdir: str, card_recs: dict, worker, timeout_s: int
 # ---------------------------------------------------------------------------
 
 # phase 14's transcriptome and the sets of phase 15 (card and CPU worker)
-RNA_SIZES = {"genes": 3000, "pairs": 750_000, "small_genes": 250, "small_pairs": 80_000,
-             "corona_nt": 30_000, "corona_cov": 2000, "host_nt": 200_000,
+RNA_SIZES = {"genes": 2000, "pairs": 500_000, "small_genes": 160, "small_pairs": 51_200,
+             "corona_nt": 30_000, "corona_cov": 1000, "host_nt": 200_000,
              "bio_nt": 300_000, "bio_cov": 40, "series_total": 300_000}
 # the three samples of the series set: per-genome coverages of phase 9's
 # community at three time points
@@ -3013,7 +3048,7 @@ def _wait(name: str, worker, workdir: str, timeout_s: int = 900):
         log.close()
     if rc != 0:
         with open(log.name) as fh:
-            raise SmokeFailure(f"phase 17's {name} process exited with {rc}: {fh.read()[-3000:]}")
+            raise SmokeFailure(f"{name} process exited with {rc}: {fh.read()[-3000:]}")
     with open(os.path.join(out, "runs.json")) as fh:
         return json.load(fh), out, time.perf_counter() - t0
 
@@ -3128,7 +3163,7 @@ def phase_tools17(dev, workdir: str, inp: dict, isolate: dict, card, worker):
     wall["count_s"] = time.perf_counter() - t0
 
     # -- the card's tool runs ------------------------------------------------
-    rec_card, card_dir, waited_card = _wait("card", card, workdir)
+    rec_card, card_dir, waited_card = _wait("phase 17's card", card, workdir)
     runs, full = rec_card["runs"], rec_card["full"]
     for name in ("binspreader", "binspreader_ml", "splitter", "sewage", "cds_subgraphs"):
         check(runs[name]["launches"] > 0 or dev.type == "cpu",
@@ -3211,7 +3246,7 @@ def phase_tools17(dev, workdir: str, inp: dict, isolate: dict, card, worker):
           "online_vis: the session's transcript is wrong")
 
     # -- the twin runs against the CPU's -------------------------------------
-    cpu_runs, cpu_dir, waited_cpu = _wait("CPU", worker, workdir)
+    cpu_runs, cpu_dir, waited_cpu = _wait("phase 17's CPU", worker, workdir)
     compared = {}
     for name, r in runs.items():
         if not name.endswith("_twin"):
@@ -3257,6 +3292,325 @@ def phase_tools17(dev, workdir: str, inp: dict, isolate: dict, card, worker):
 # ---------------------------------------------------------------------------
 # 13. the shapes the paths gave the kernel that phase 2 did not hold
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# 18. multi-GPU on torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_SUBSET_PAIRS = 65_536       # the pairs of (a)'s group mapping, votes and hits
+
+
+def sharded_construction(dev, inp: dict, group):
+    """Phase 3's isolate under `group`: the sharded count of its 56-mers
+    (each rank its share of every chunk) and `construct_graph` at k = 55,
+    each checked against phase 3's digests.  Returns (record, store, graph,
+    reads); the record's launches count both runs."""
+    from spades_tpu_torch.core.reads import ReadStore
+    from spades_tpu_torch.io.fastx import read_sequences
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.parallel.distributed import EXCHANGED, rank_and_size
+    from spades_tpu_torch.parallel.sharded_count import count_kmers_sharded
+    from spades_tpu_torch.pipeline.construction import construct_graph
+
+    rank, world = rank_and_size(group)
+    name = f"rank {rank} of {world}"
+    wall = {}
+    t0 = time.perf_counter()
+    reads = list(read_sequences(inp["paths"]))
+    store = ReadStore.build(reads)
+    wall["inputs_s"] = time.perf_counter() - t0
+    CK.canonical_window_keys.launches = 0
+    sent0 = EXCHANGED["bytes"]
+    t0 = time.perf_counter()
+    kc = count_kmers_sharded(store.chunks, 56, group=group, device=dev, share=True)
+    sync(dev)
+    wall["count_s"] = time.perf_counter() - t0
+    count_bytes = EXCHANGED["bytes"] - sent0
+    check(digest(kc.words, kc.counts) == inp["digests"]["p1"],
+          f"{name}: the sharded count differs from phase 3's")
+    t0 = time.perf_counter()
+    res = construct_graph(reads, 55, read_store=store, device=dev, group=group)
+    sync(dev)
+    wall["construct_graph_s"] = time.perf_counter() - t0
+    got = construction_digests(res.p1_counts, res.graph)
+    check(got["p1"] == inp["digests"]["p1"],
+          f"{name}: construct_graph's counts differ from phase 3's")
+    for f, want in inp["digests"]["graph"].items():
+        check(got["graph"][f] == want, f"{name}: construct_graph's {f} differs from phase 3's")
+    rec = {"rank": rank, "world": world, "wall_s": wall, "unique_p1": kc.num_unique,
+           "count_bytes_sent": count_bytes,
+           "construct_bytes_sent": res.timings["exchanged_bytes"],
+           "construct_timings": res.timings,
+           "launches": CK.canonical_window_keys.launches}
+    return rec, store, res.graph, reads
+
+
+def sharded_mapping_checks(dev, group, graph, reads, n_pairs: int, sub_pairs: int) -> dict:
+    """Group map / votes / hits of `sub_pairs` pairs on the graph against
+    the same calls on one device; returns times and the launches of the
+    group calls."""
+    import types
+
+    import numpy as np
+
+    from spades_tpu_torch.core import kmers as K
+    from spades_tpu_torch.core.reads import ReadBatch, ReadStore
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.parallel import sharded_mapping as SM
+
+    sub_pairs = min(sub_pairs, n_pairs)
+    sub = reads[:sub_pairs] + reads[n_pairs : n_pairs + sub_pairs]
+    store = ReadStore.build(sub)
+    batch = ReadBatch.from_sequences(sub)
+    prep = SM.build_index_device(graph, 55, dev)
+    k55 = types.SimpleNamespace(k=55)
+    tips = K.keys_to_words(prep[0][:, ::97].T.contiguous().cpu().numpy(), K.kmer_words(55))
+    calls = {
+        "map_reads_sharded": lambda g: SM.map_reads_sharded(k55, graph, batch, dev, prep=prep,
+                                                            group=g),
+        "position_votes_sharded": lambda g: SM.position_votes_sharded(
+            k55, graph, store=store, prep=prep, device=dev, group=g),
+        "hit_filter_store": lambda g: SM.hit_filter_store(store, tips, 55, device=dev, group=g),
+    }
+    single = {name: fn(None) for name, fn in calls.items()}     # one device (world size 1)
+    rec = {"pairs": sub_pairs, "wall_s": {}}
+    CK.canonical_window_keys.launches = 0
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        got = fn(group)
+        sync(dev)
+        rec["wall_s"][name] = time.perf_counter() - t0
+        want = single[name]
+        same = (all(np.array_equal(a, b) for a, b in zip(got, want)) if isinstance(got, tuple)
+                else np.array_equal(got, want))
+        check(same, f"(a): the group {name} differs from the single-device call")
+    rec["mapped"] = int((single["map_reads_sharded"][0] >= 0).sum())
+    rec["hits"] = int(single["hit_filter_store"].sum())
+    rec["launches"] = CK.canonical_window_keys.launches
+    return rec
+
+
+SHARDED_DE_ROWS = 2_000_000        # raw pair rows of (a)'s distance clustering
+
+
+def sharded_de_check(dev, group, n: int = SHARDED_DE_ROWS) -> dict:
+    """`estimate_simple_sharded` of a seeded raw pair table under `group`
+    on the card against the port's CPU result: e1 and e2 equal, dist and
+    weight within rtol 1e-5 (CUDA's `index_add_` sums float32 in another
+    order).  Returns times and sizes."""
+    import numpy as np
+
+    from spades_tpu_torch.paired.paired_info import PairedIndex
+    from spades_tpu_torch.parallel.sharded_de import estimate_simple_sharded
+
+    rng = np.random.default_rng(18)
+    e1, e2 = rng.integers(0, 20_000, n), rng.integers(0, 20_000, n)
+    # half the rows in 500 heavy groups of about 2,000 rows, each one cluster
+    e1[: n // 2], e2[: n // 2] = rng.integers(0, 500, n // 2), 0
+    d = rng.integers(0, 1_000, n)
+    o = np.lexsort((d, e2, e1))
+    pi = PairedIndex(e1[o], e2[o], d[o], (rng.integers(1, 50, n) / 7.0)[o])
+    t0 = time.perf_counter()
+    got = estimate_simple_sharded(pi, group=group, device=dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = estimate_simple_sharded(pi, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    check(np.array_equal(got.e1, ref.e1) and np.array_equal(got.e2, ref.e2),
+          "(a): the group distance clusters differ from the CPU's")
+    check(np.allclose(got.dist, ref.dist, rtol=1e-5, atol=0)
+          and np.allclose(got.weight, ref.weight, rtol=1e-5, atol=0),
+          "(a): the group distance estimates differ from the CPU's beyond rtol 1e-5")
+    return {"rows": n, "clusters": int(ref.e1.size), "wall_s": wall, "cpu_wall_s": cpu_wall,
+            "max_rel_dist": float(np.max(np.abs(got.dist - ref.dist)
+                                         / np.maximum(np.abs(ref.dist), 1e-30))),
+            "max_rel_weight": float(np.max(np.abs(got.weight - ref.weight) / ref.weight))}
+
+
+def sharded_rank(workdir: str, inp: dict) -> int:
+    """One rank of (b) (`--runs sharded_rank`): gloo on the card, beside
+    the other rank in a process of its own."""
+    import torch
+    import torch.distributed as dist
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.parallel.distributed import init_distributed
+
+    torch.set_num_threads(2)
+    dev = torch.device(inp["device"])
+    init_distributed(f"localhost:{inp['port']}", 2, inp["rank"], backend="gloo", device=dev)
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    t0 = time.perf_counter()
+    rec, *_ = sharded_construction(dev, inp, dist.group.WORLD)
+    rec["rank_wall_s"] = time.perf_counter() - t0
+    rec["shapes"] = [[*key, n] for key, n in shapes.items()]
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def _run_ranks(cmds, outs, env, timeout_s: float):
+    """Start one process per command; returns each one's wall seconds
+    (until it exited) and its stderr.  Raises unless every one exits 0."""
+    t0 = time.perf_counter()
+    procs = []
+    for cmd, out in zip(cmds, outs):
+        with open(out + ".out", "w") as fo, open(out + ".err", "w") as fe:
+            procs.append(subprocess.Popen(cmd, cwd=HERE, env=env, stdout=fo, stderr=fe))
+    walls = [None] * len(procs)
+    try:
+        while any(w is None for w in walls):
+            check(time.perf_counter() - t0 < timeout_s, "phase 18: a rank ran past its time")
+            for i, p in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errs = []
+    for p, out in zip(procs, outs):
+        with open(out + ".err") as fh:
+            errs.append(fh.read())
+        check(p.returncode == 0, f"phase 18: {' '.join(p.args[1:4])} exited with "
+                                 f"{p.returncode}: {errs[-1][-3000:]}")
+    return walls, errs
+
+
+def sharded_cli(dev, workdir: str, inp: dict) -> dict:
+    """`python -m spades_tpu_torch.pipeline.main -k 55 --careful
+    --num-processes 2` on phase 8's FASTQ, two gloo ranks on the card, rank 1
+    given an output directory of its own: rank 0's corrected reads, contigs
+    and scaffolds must equal phase 8's, and rank 1's directory must not
+    exist."""
+    import re
+
+    from spades_tpu_torch.parallel.dryrun import free_port
+
+    outs = [os.path.join(workdir, "cli_np2"), os.path.join(workdir, "cli_np2_rank1")]
+    cmd = [sys.executable, "-m", "spades_tpu_torch.pipeline.main", "-1", inp["cli_fastq"][0],
+           "-2", inp["cli_fastq"][1], "-k", str(inp["cli_k"]), "--careful",
+           "--num-processes", "2", "--coordinator", f"localhost:{free_port()}",
+           "--dist-backend", "gloo"] + (["--device", "cpu"] if dev.type == "cpu" else [])
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    walls, errs = _run_ranks([cmd + ["--process-id", str(r), "-o", outs[r]] for r in range(2)],
+                             [os.path.join(workdir, f"cli_np2_r{r}") for r in range(2)], env,
+                             900)
+    check(not os.path.exists(outs[1]), "phase 18: rank 1 of the CLI wrote its output directory")
+    for name in ("corrected/lib1_1.cor.fasta", "corrected/lib1_2.cor.fasta", "contigs.fasta",
+                 "scaffolds.fasta"):
+        check(read_bytes(os.path.join(outs[0], name))
+              == read_bytes(os.path.join(inp["cli_out"], name)),
+              f"phase 18: the two-rank CLI's {name} differs from phase 8's")
+    launches, per_k, sent = [], [], []
+    for r, err in enumerate(errs):
+        found = re.findall(r"kernel launches: canonical_windows=(\d+)", err)
+        check(len(found) == 1, f"phase 18: CLI rank {r} does not say how often it launched B1")
+        launches.append(int(found[0]))
+        per_k.append({int(k): int(b) for k, b in
+                      re.findall(r"k=(\d+): \d+ unique \(k\+1\)-mers.*'exchanged_bytes': (\d+)",
+                                 err)})
+        total = re.findall(r"collectives: (\d+) bytes sent in (\d+)", err)
+        check(len(total) == 1, f"phase 18: CLI rank {r} does not say what it sent")
+        sent.append([int(x) for x in total[0]])
+    return {"wall_s": walls, "launches": launches, "construction_bytes_sent_per_k": per_k,
+            "bytes_sent_and_collectives": sent}
+
+
+def sharded_card(workdir: str, inp: dict) -> int:
+    """Phase 18's process (`--runs sharded`), started before phase 14: (a)
+    NCCL at world size 1, then (b) two gloo ranks on the card, the dry runs
+    and the two-rank CLI.  In a CPU rehearsal (a) is gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.parallel.distributed import start_group
+    from spades_tpu_torch.parallel.dryrun import dryrun_multigpu, dryrun_multihost, free_port
+
+    torch.set_num_threads(2)          # beside phase 14 and the workers
+    dev = torch.device(inp["device"])
+    rec = {"card": nvidia_smi_line() if dev.type == "cuda" else "cpu"}
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    # (a) NCCL at world size 1: the collectives launch on the card
+    t0 = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    start_group(f"localhost:{free_port()}", 1, 0, backend, dev)
+    check(dist.get_backend() == backend, f"(a): the group's backend is not {backend}")
+    a, _store, graph, reads = sharded_construction(dev, inp, dist.group.WORLD)
+    a["backend"] = backend
+    a["mapping"] = sharded_mapping_checks(dev, dist.group.WORLD, graph, reads, inp["pairs"],
+                                          SHARDED_SUBSET_PAIRS)
+    a["distance_clusters"] = sharded_de_check(dev, dist.group.WORLD)
+    dist.destroy_process_group()
+    a["phase_wall_s"] = time.perf_counter() - t0
+    rec["nccl1"] = a
+    del _store, graph, reads
+    CK.canonical_window_keys.launch_shapes = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (b) two ranks on the one card under gloo, each in its own process
+    t0 = time.perf_counter()
+    port = free_port()
+    outs = [os.path.join(workdir, f"gloo2_r{r}") for r in range(2)]
+    for out in outs:
+        os.makedirs(out)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    walls, _errs = _run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--cpu-worker", outs[r], "--runs",
+          "sharded_rank", "--sizes", json.dumps(dict(inp, rank=r, port=port))]
+         for r in range(2)], outs, env, 900)
+    rec["gloo2"] = []
+    for r, out in enumerate(outs):
+        with open(os.path.join(out, "runs.json")) as fh:
+            rec["gloo2"].append(dict(json.load(fh), process_wall_s=walls[r]))
+    rec["gloo2_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["dryrun_multigpu"] = dict(dryrun_multigpu(2, dev.type, "gloo"),
+                                  wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out = dryrun_multihost(2, dev.type, "gloo")
+    rec["dryrun_multihost"] = {"line": out.strip().splitlines()[-1],
+                               "wall_s": time.perf_counter() - t0}
+    rec["cli_np2"] = sharded_cli(dev, workdir, inp)
+    rec["shapes"] = [[*key, n] for key, n in shapes.items()]
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def start_sharded(workdir: str, isolate: dict, gap_state: dict, dev):
+    """Start phase 18's process (before phase 14)."""
+    out = os.path.join(workdir, "sharded")
+    os.makedirs(out)
+    inp = {"device": dev.type, "paths": isolate["paths"], "pairs": isolate["pairs"],
+           "digests": isolate["digests"], "cli_fastq": gap_state["cli_fastq"],
+           "cli_k": gap_state["k"], "cli_out": gap_state["cli_out"]}
+    log = open(os.path.join(workdir, "sharded.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-worker", out, "--runs", "sharded",
+         "--sizes", json.dumps(inp)],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def phase_sharded(dev, workdir: str, worker):
+    """Phase 18: wait for its process and report; every check ran there."""
+    rec, _out, wait_s = _wait("phase 18's", worker, workdir)
+    launches = {"sharded_nccl1": rec["nccl1"]["launches"] + rec["nccl1"]["mapping"]["launches"],
+                "sharded_gloo2_r0": rec["gloo2"][0]["launches"],
+                "sharded_gloo2_r1": rec["gloo2"][1]["launches"],
+                "cli_np2": sum(rec["cli_np2"]["launches"])}
+    for name, n in launches.items():
+        check(n > 0 or dev.type == "cpu", f"phase 18: {name} launched no kernel")
+    shapes = collections.Counter()
+    for row in rec.pop("shapes") + [row for g in rec["gloo2"] for row in g.pop("shapes")]:
+        shapes[tuple(row[:4])] += row[4]
+    return (dict(phase="multi_gpu", waited_s=wait_s, **rec), launches, shapes)
 
 def phase_observed_shapes(dev, observed, held, max_groups: int = 64) -> dict:
     """`observed` counts launches by (R, L, k, strand).  For every (L, k,
@@ -3333,8 +3687,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
         gap_count: int = 30, total_tolerance: float = 0.02, meta_sizes=META_SIZES,
         small_sizes=None, rna_sizes=None):
-    """All phases on `dev` (16 after 15, 17 after 16, 13 last); returns the
-    kernels line.
+    """All phases on `dev` (16 after 15, 17 after 16, 18 after 17, 13 last);
+    returns the kernels line.
     Raises on any failure.
     total_tolerance: how far the contigs' total may be from the genome size
     (a rehearsal on a small genome, most of it planted repeats, needs more);
@@ -3354,7 +3708,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     observed = collections.Counter()
     launches = {}
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
-    worker = worker7 = worker16 = worker17 = card17 = cli7 = None
+    worker = worker7 = worker16 = worker17 = card17 = cli7 = sharded = None
     try:
         # the CPU side of phase 15 (about 800 s of CPU work) runs from here
         # on, in a process of its own
@@ -3432,6 +3786,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         card7 = os.path.join(workdir, "card_side_slice7")
         files7 = _slice7_inputs(os.path.join(card7, "inputs"), seed, rna_sizes)
         cli7 = start_slice7_cli(card7, files7, dev)
+        # phase 18's ranks go on during phase 14 too, in processes of their own
+        sharded = start_sharded(workdir, isolate, gap_state, dev)
         rec, counts, shapes = phase_rna(dev, workdir, seed, rna_sizes)
         launches.update(counts)
         observed.update(shapes)
@@ -3454,12 +3810,17 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
+        rec, counts, shapes = phase_sharded(dev, workdir, sharded)
+        launches.update(counts)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
     finally:
         CK.canonical_window_keys.launch_shapes = None
         if cli7 is not None:          # its processes end before the script does
             with contextlib.suppress(BaseException):
                 cli7()
-        for w in (worker, worker7, worker16, worker17, card17):
+        for w in (worker, worker7, worker16, worker17, card17, sharded):
             if w is not None:
                 if w[0].poll() is None:
                     w[0].kill()
@@ -3490,6 +3851,9 @@ def main(argv=None) -> int:
             return slice7_worker(args.cpu_worker, args.seed, json.loads(args.sizes))
         if args.runs == "tools":
             return tools_worker(args.cpu_worker, json.loads(args.sizes))
+        if args.runs in ("sharded", "sharded_rank"):
+            work = sharded_card if args.runs == "sharded" else sharded_rank
+            return work(args.cpu_worker, json.loads(args.sizes))
         if args.runs in ("tools17", "tools17_card"):
             work = tools17_worker if args.runs == "tools17" else tools17_card
             return work(args.cpu_worker, json.loads(args.sizes))

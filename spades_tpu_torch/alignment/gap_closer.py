@@ -168,6 +168,7 @@ def close_gaps(
     engine=None,
     paired_stores: list | None = None,
     stats: dict | None = None,
+    group=None,
 ) -> int:
     """Close tip-to-tip gaps supported by read pairs.  Returns #gaps closed.
 
@@ -183,6 +184,10 @@ def close_gaps(
     (None: the engine's device, else the CUDA card; see `resolve_device`);
     vote collection and the final overlap splices stay on the host, as
     SPAdes' are serial under a lock.
+
+    group: the process group the prefilter and the mapping run across (the
+    JAX package's `mesh`; None: the engine's group, else the default group
+    of a multi-process run), GapCloserMPI's split of the reads.
 
     stats: optional dict that receives `candidates` and `pairs` (prefilter
     survivors and pairs seen, store path), `prefilter_s` and `map_s` (wall
@@ -203,7 +208,7 @@ def close_gaps(
         if engine is None:
             from .mapper import MappingEngine
 
-            engine = MappingEngine(g, index=index, device=device)
+            engine = MappingEngine(g, index=index, device=device, group=group)
         from ..core.reads import subset_store
         from ..parallel.sharded_mapping import hit_filter_store
 
@@ -222,8 +227,8 @@ def close_gaps(
             return 0
         for st1, st2rc, _lib_type in paired_stores:
             t0 = time.perf_counter()
-            h1 = hit_filter_store(st1, tipw, g.k, device=engine.device)
-            h2 = hit_filter_store(st2rc, tipw, g.k, device=engine.device)
+            h1 = hit_filter_store(st1, tipw, g.k, device=engine.device, group=engine.group)
+            h2 = hit_filter_store(st2rc, tipw, g.k, device=engine.device, group=engine.group)
             cand = np.flatnonzero(h1 & h2)
             stats["prefilter_s"] += time.perf_counter() - t0
             stats["candidates"] += int(cand.size)
@@ -243,9 +248,11 @@ def close_gaps(
             ).items():
                 votes[pair] = votes.get(pair, 0) + c
     else:
-        index = index or build_edge_index(g)
-
         from ..io.libraries import iter_fr_libs
+        from ..parallel.distributed import resolve_group
+
+        index = index or build_edge_index(g)
+        grp = resolve_group(group)
 
         for r1s, r2s, _lib_type in iter_fr_libs(paired):
             r2rc = [
@@ -254,14 +261,25 @@ def close_gaps(
                 for s in r2s
             ]
             t0 = time.perf_counter()
-            m1 = map_read_batch(index, g, r1s, device=device)
-            # FR orientation: the right mate spells the reverse strand
-            m2 = map_read_batch(index, g, r2rc, device=device)
+            if grp is not None:
+                from ..core.reads import ReadBatch
+                from ..parallel.sharded_mapping import map_reads_sharded
+
+                e1a, s1a, _ = map_reads_sharded(index, g, ReadBatch.from_sequences(r1s),
+                                                device, group=grp)
+                e2a, s2a, _ = map_reads_sharded(index, g, ReadBatch.from_sequences(r2rc),
+                                                device, group=grp)
+                e1a, s1a = e1a[: len(r1s)].astype(np.int64), s1a[: len(r1s)].astype(np.int64)
+                e2a, s2a = e2a[: len(r2rc)].astype(np.int64), s2a[: len(r2rc)].astype(np.int64)
+            else:
+                m1 = map_read_batch(index, g, r1s, device=device)
+                # FR orientation: the right mate spells the reverse strand
+                m2 = map_read_batch(index, g, r2rc, device=device)
+                e1a = np.array([m.edge if m else -1 for m in m1], np.int64)
+                s1a = np.array([m.start_offset if m else 0 for m in m1], np.int64)
+                e2a = np.array([m.edge if m else -1 for m in m2], np.int64)
+                s2a = np.array([m.start_offset if m else 0 for m in m2], np.int64)
             stats["map_s"] += time.perf_counter() - t0
-            e1a = np.array([m.edge if m else -1 for m in m1], np.int64)
-            s1a = np.array([m.start_offset if m else 0 for m in m1], np.int64)
-            e2a = np.array([m.edge if m else -1 for m in m2], np.int64)
-            s2a = np.array([m.start_offset if m else 0 for m in m2], np.int64)
             for pair, c in _collect_votes(
                 g, e1a, s1a, e2a, s2a, dead_end, dead_start, cfg
             ).items():

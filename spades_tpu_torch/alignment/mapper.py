@@ -119,14 +119,18 @@ class MappingEngine:
     Stages share one engine per graph state and must drop it after mutating
     the graph.  `device` is where the device path runs (default: the CUDA
     card, see `resolve_device`); it is resolved at first use.  `k` is the
-    index's k when it is not the graph's (a tool mapping at a smaller k)."""
+    index's k when it is not the graph's (a tool mapping at a smaller k).
+    `group` (the JAX package's `mesh`; None: the default group of a
+    multi-process run) shares each chunk's reads out among the ranks, each
+    holding the same device index."""
 
     def __init__(self, g: CondensedGraph, index: EdgeIndex | None = None,
-                 device=None, k: int | None = None):
+                 device=None, k: int | None = None, group=None):
         self.g = g
         self._index = index
         self._k = index.k if index is not None else (k or g.k)
         self._device = device
+        self._group = group
         self._prep = None
         # wall seconds and row counts of the device index build, once it ran
         self.index_timings: dict = {}
@@ -145,6 +149,15 @@ class MappingEngine:
         if not isinstance(self._device, torch.device):
             self._device = resolve_device(self._device)
         return self._device
+
+    @property
+    def group(self):
+        """The process group the device path maps across, or None (one
+        device): the engine's `group`, else the default group of a
+        multi-process run."""
+        from ..parallel.distributed import resolve_group
+
+        return resolve_group(self._group)
 
     def _device_index(self, build_on_device: bool = False):
         """The device index tuple, built once.  build_on_device: extract and
@@ -231,8 +244,9 @@ class MappingEngine:
         results cross to the host.  On a CUDA out-of-memory error the
         sub-slice halves (down to 8,192) and the chunk is retried; any other
         error escapes.  A chunk narrower than k holds no window: none of its
-        reads maps."""
-        from ..parallel.sharded_mapping import map_packed_async
+        reads maps.  Under a group every rank maps its share of the chunk's
+        reads and the mappings are gathered (`make_sharded_mapper`)."""
+        from ..parallel.sharded_mapping import _map_rows_local, make_sharded_mapper
 
         if ch.L < self._k:
             z = np.zeros(ch.n, np.int64)
@@ -240,24 +254,14 @@ class MappingEngine:
         if sub is None:
             sub = int(os.environ.get("SPADES_MAP_SUBCHUNK", 131072))
         pc, pn, lengths = ch.device(self.device)
-        R = pc.shape[0]
         prep = self._device_index()
-        while True:
-            try:
-                futs = [map_packed_async(prep, self._k, pc[a : a + sub], pn[a : a + sub],
-                                         lengths[a : a + sub], ch.L)
-                        for a in range(0, R, sub)]
-                outs = [tuple(t.cpu().numpy() for t in f) for f in futs]
-                break
-            except torch.cuda.OutOfMemoryError:
-                if sub <= 8192:
-                    raise
-                log.info("mapper sub-chunk %d out of device memory, retrying at %d",
-                         sub, sub // 2)
-                futs = None
-                sub //= 2
-                torch.cuda.empty_cache()
-        e, s, v = (np.concatenate([o[i] for o in outs]).astype(np.int64) for i in range(3))
+        if self.group is None:
+            out = _map_rows_local(prep, self._k, pc, pn, lengths, ch.L, sub)
+        else:
+            n = ch.n
+            out = make_sharded_mapper(self.group, self._k, ch.L, sub)(
+                pc[:n], pn[:n], lengths[:n], prep)
+        e, s, v = (t.cpu().numpy().astype(np.int64) for t in out)
         return e[: ch.n], s[: ch.n], v[: ch.n]
 
     def _map_chunk_host(self, ch, kmer_mapper):

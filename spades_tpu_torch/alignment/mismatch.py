@@ -70,14 +70,19 @@ def position_votes(
 
 def correct_mismatches(g: CondensedGraph, reads: list[str] | None = None,
                        index: EdgeIndex | None = None, store=None,
-                       engine=None, device=None) -> int:
+                       engine=None, device=None, group=None) -> int:
     """Fix edge-sequence mismatches by read majority vote.  Returns #bases fixed.
 
     With `store` (a run-wide packed ReadStore), the mapping and the vote
     tally run on the device (`position_votes_sharded`); `engine` reuses a
     shared MappingEngine's device index (and its device).  The legacy
     string-list path stays for tools and tests.  device: where the device
-    work runs (None: the CUDA card, see `resolve_device`).
+    work runs (None: the CUDA card, see `resolve_device`).  group: the
+    process group the store path's vote runs across (the JAX package's
+    `mesh`; None: the engine's group, else the default group of a
+    multi-process run): each rank votes with its share of the reads and one
+    `all_reduce` sums the tallies, as MismatchCorrectionMPI's vote merge
+    (`hpcspades/mpi/stages/mismatch_correction_mpi.hpp`).
 
     Known divergence of the store path, kept from the JAX package: it does
     not apply the kmer-mapper projection, so reads whose every anchor was
@@ -97,12 +102,14 @@ def correct_mismatches(g: CondensedGraph, reads: list[str] | None = None,
         if engine is not None:
             prep = engine._device_index()
             k = engine._k
+            group = group if group is not None else engine.group
         else:
             prep = None
             index = index or build_edge_index(g)
             k = index.k
         votes = position_votes_sharded(
             _KOnly(k) if index is None else index, g, store=store, prep=prep, device=dev,
+            group=group,
         )
     else:
         if engine is not None:

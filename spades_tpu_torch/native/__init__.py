@@ -14,6 +14,7 @@ as `simplify_native`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -113,10 +114,14 @@ def lib():
         if not srcs:
             return None
         try:
-            res = subprocess.run(
-                ["make", "-C", _DIR], check=True, capture_output=True, text=True,
-                timeout=120,
-            )
+            # one build at a time: ranks of a multi-process run start together,
+            # and make writes the library in place
+            with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                res = subprocess.run(
+                    ["make", "-C", _DIR], check=True, capture_output=True, text=True,
+                    timeout=120,
+                )
             build_log = res.stdout + res.stderr
         except (OSError, subprocess.SubprocessError) as e:
             build_log = f"{e}\n{getattr(e, 'stdout', '') or ''}{getattr(e, 'stderr', '') or ''}"

@@ -34,9 +34,9 @@ def unpack_batch_device(pc: torch.Tensor, pn: torch.Tensor, L: int):
     pn (R, ceil(L/8)) uint8 (little bit order) -> n_mask (R, L) bool."""
     R = pc.shape[0]
     shifts = torch.arange(4, dtype=torch.uint8, device=pc.device) * 2
-    codes = ((pc[:, :, None] >> shifts) & 3).reshape(R, -1)[:, :L]
+    codes = ((pc[:, :, None] >> shifts) & 3).reshape(R, 4 * pc.shape[1])[:, :L]
     bits = torch.arange(8, dtype=torch.uint8, device=pn.device)
-    n_mask = ((pn[:, :, None] >> bits) & 1).reshape(R, -1)[:, :L].to(torch.bool)
+    n_mask = ((pn[:, :, None] >> bits) & 1).reshape(R, 8 * pn.shape[1])[:, :L].to(torch.bool)
     return codes, n_mask
 
 
@@ -221,23 +221,31 @@ class DeviceRunStack:
             self._merge_top()
         self.tm["merge_s"] = self.tm.get("merge_s", 0.0) + time.perf_counter() - t0
 
-    def finish(self) -> KmerCounts:
-        W = K.kmer_words(self.k)
+    def finish_device(self):
+        """Merge every run into one; returns its (keys (nK, U), counts (U,))
+        on the device, or None when nothing was pushed."""
         if not self.stack:
-            return KmerCounts(k=self.k, words=np.zeros((0, W), np.uint32),
-                              counts=np.zeros(0, np.int64))
+            return None
         t0 = time.perf_counter()
         while len(self.stack) >= 2:
             self._merge_top()
         self.tm["merge_s"] = self.tm.get("merge_s", 0.0) + time.perf_counter() - t0
         w, c, _, nu = self.stack.pop()
+        return w[:, :nu], c[:nu]
+
+    def finish(self) -> KmerCounts:
+        W = K.kmer_words(self.k)
+        got = self.finish_device()
+        if got is None:
+            return KmerCounts(k=self.k, words=np.zeros((0, W), np.uint32),
+                              counts=np.zeros(0, np.int64))
+        w, c = got
         t0 = time.perf_counter()
-        c = c[:nu]
         # counts cross to the host as uint16 when they fit (the common case:
         # multiplicities ~ coverage) — 2 bytes/row instead of 8
         if int(c.max()) < 0xFFFF:
             c = c.to(torch.uint16)
-        keys = w[:, :nu].T.contiguous().cpu().numpy()
+        keys = w.T.contiguous().cpu().numpy()
         counts = c.cpu().numpy().astype(np.int64)
         self.tm["pull_s"] = self.tm.get("pull_s", 0.0) + time.perf_counter() - t0
         return KmerCounts(k=self.k, words=K.keys_to_words(keys, W), counts=counts)

@@ -10,6 +10,7 @@ plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -50,22 +51,25 @@ def build() -> str:
     global _lib, build_log
     if _lib is not None:
         return _SO
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # build to a private name, then rename: a concurrent loader never
-        # sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                                 capture_output=True, text=True, timeout=600)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
-            os.replace(tmp, _SO)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # one build at a time (the ranks of a multi-process run start together);
+    # each builds to a private name, then renames: a concurrent loader never
+    # sees a half-written library
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+                                     capture_output=True, text=True, timeout=600)
+                build_log = res.stdout + res.stderr
+                if res.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
+                os.replace(tmp, _SO)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
     lib = ctypes.CDLL(_SO)
     lib.spades_canonical_windows.restype = ctypes.c_int
     lib.spades_canonical_windows.argtypes = C_ARGTYPES

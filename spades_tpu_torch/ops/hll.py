@@ -18,27 +18,11 @@ import torch
 
 from .. import resolve_device
 from ..core import kmers as K
+from ..parallel.sharded_count import _M32, _mix32
 from .cuda_kernels import canonical_window_keys
 
 HLL_P = 12  # 4096 registers, ~1.6% relative error (the reference's precision)
 HLL_M = 1 << HLL_P
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
-    """(h * c) mod 2**32 for int64-held uint32 h and a 32-bit constant c,
-    with no intermediate at or above 2**49: c splits into 16-bit halves."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(h: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finalizer (`spades_tpu/parallel/sharded_count.py:41`)."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
 
 
 def _hash2(words: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:

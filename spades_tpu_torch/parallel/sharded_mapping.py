@@ -1,9 +1,9 @@
-"""Read-to-graph mapping on one device, and paired-info filling.
+"""Read-to-graph mapping on the device and across a process group, and
+paired-info filling.
 
-The single-device parts of `spades_tpu.parallel.sharded_mapping` on PyTorch
-(the mesh wrappers of that module wait for the multi-GPU slice).  The edge
-k-mer index (sorted canonical k-mers with parallel (edge, offset, strand)
-columns, `alignment/mapper.py` EdgeIndex) lives on the device; a read batch
+`spades_tpu.parallel.sharded_mapping` on PyTorch.  The edge k-mer index
+(sorted canonical k-mers with parallel (edge, offset, strand) columns,
+`alignment/mapper.py` EdgeIndex) lives on the device; a read batch
 
 * has its canonical windows and their strand bits taken by the
   canonical-windows kernel (`ops/cuda_kernels.py`), straight from the packed
@@ -18,6 +18,18 @@ Edge, offset, start and votes are int32, as there.  The JAX package pads the
 index, the pool and the row plan to powers of two to keep its compiled
 program shapes stable; eager PyTorch has no such need, so nothing is padded
 here, and every lookup answers the same.
+
+Across a process group (the JAX package's mesh wrappers `make_sharded_mapper`,
+`make_sharded_voter`, `make_sharded_hitter`), the index is replicated: every
+rank builds the same one from the same graph, maps its rows [lo, hi) of each
+chunk (`process_read_slice`), and the mappings and hits are gathered back
+into read order on every rank; the votes of every rank's reads are summed by
+one int32 `all_reduce` at the end (exact).  Each rank sub-slices and halves
+its sub-slice on a CUDA out-of-memory error on its own: no collective runs
+inside that loop.  `group=None` is the default group when one is
+initialized with several processes (`parallel/distributed.py`); the
+sub-slice call `map_packed_async` takes the group path only when it is
+given one.
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ import torch
 from .. import resolve_device
 from ..core import kmers as K
 from ..ops.cuda_kernels import canonical_window_keys
+from .distributed import (all_reduce_sum, gather_rows, process_read_slice, rank_and_size,
+                          resolve_group)
 
 log = logging.getLogger("spades_tpu_torch.sharded_mapping")
 
@@ -163,27 +177,78 @@ def prepare_index_device(index, g, device=None):
     return tuple(torch.from_numpy(a).to(dev) for a in cols) + _graph_columns(g, dev)
 
 
-def map_packed_async(prep, k: int, pc, pn, lengths, L: int, device=None):
+def _rank_rows(n: int, group):
+    """(lo, hi) of this rank's rows among n, and every rank's row count."""
+    rank, world = rank_and_size(group)
+    bounds = [process_read_slice(n, r, world) for r in range(world)]
+    return bounds[rank], [b - a for a, b in bounds]
+
+
+def _map_rows_local(prep, k: int, pc, pn, lengths, L: int, sub: int):
+    """Map rows in sub-slices of `sub`, each queued before any result is
+    read, so the device works on sub-slice i+1 while i's results wait.  On a
+    CUDA out-of-memory error the sub-slice halves (down to 8,192) and the
+    rows are retried; any other error escapes.  Returns device (edge, start,
+    votes) int32 of every row."""
+    dev = prep[0].device
+    while True:
+        try:
+            futs = [map_packed_async(prep, k, pc[a : a + sub], pn[a : a + sub],
+                                     lengths[a : a + sub], L)
+                    for a in range(0, pc.shape[0], sub)]
+            if not futs:
+                z = torch.zeros(0, dtype=torch.int32, device=dev)
+                return z, z, z
+            return tuple(torch.cat([f[i] for f in futs]) for i in range(3))
+        except torch.cuda.OutOfMemoryError:
+            if sub <= 8192:
+                raise
+            log.info("mapper sub-chunk %d out of device memory, retrying at %d",
+                     sub, sub // 2)
+            futs = None
+            sub //= 2
+            torch.cuda.empty_cache()
+
+
+def make_sharded_mapper(group, k: int, L: int, sub: int = 131072):
+    """The mapping step over `group`: fn(pc, pn, lengths, prep) -> device
+    (edge, start, votes) int32 of every row, in row order on every rank;
+    each rank maps its [lo, hi) rows in sub-slices of `sub`."""
+    def fn(pc, pn, lengths, prep):
+        (lo, hi), sizes = _rank_rows(pc.shape[0], group)
+        mine = _map_rows_local(prep, k, pc[lo:hi], pn[lo:hi], lengths[lo:hi], L, sub)
+        out = gather_rows(torch.stack(mine, 1), group, sizes)
+        return out[:, 0], out[:, 1], out[:, 2]
+    return fn
+
+
+def map_packed_async(prep, k: int, pc, pn, lengths, L: int, device=None, group=None):
     """Queue one packed wire chunk (host arrays or device tensors) against a
     prepared device index and return DEVICE (edge, start, votes) tensors
     without synchronising: callers queue several sub-chunks and pull
-    afterwards, so the device stays busy during the result transfers."""
+    afterwards, so the device stays busy during the result transfers.
+    With a `group`, every rank maps its share of the rows and gathers the
+    rest (a collective: every rank of the group calls it)."""
     dev = prep[0].device if device is None else resolve_device(device)
     pc, pn, lengths = (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
                        for a in (pc, pn, lengths))
     pc, pn, lengths = (a.to(dev).contiguous() for a in (pc, pn, lengths))
+    if group is not None:
+        return make_sharded_mapper(group, k, L, sub=max(pc.shape[0], 1))(pc, pn, lengths, prep)
     return _map_shard_body(pc, pn, lengths, *prep, k=k, L=L)
 
 
-def map_packed_sharded(prep, k: int, pc, pn, lengths, L: int, R: int, device=None):
+def map_packed_sharded(prep, k: int, pc, pn, lengths, L: int, R: int, device=None,
+                       group=None):
     """Map one packed wire chunk against a prepared device index.  Returns
     (edge, start, votes) numpy arrays of length R."""
-    edge, start, votes = map_packed_async(prep, k, pc, pn, lengths, L, device)
+    edge, start, votes = map_packed_async(prep, k, pc, pn, lengths, L, device, group)
     return (edge.cpu().numpy()[:R], start.cpu().numpy()[:R], votes.cpu().numpy()[:R])
 
 
-def map_reads_sharded(index, g, batch, device=None, prep=None):
-    """Host wrapper: map a ReadBatch against an EdgeIndex on the device.
+def map_reads_sharded(index, g, batch, device=None, prep=None, group=None):
+    """Host wrapper: map a ReadBatch against an EdgeIndex on the device, or
+    across the group (None: the default group of a multi-process run).
 
     Returns (edge (R,), start (R,), votes (R,)) numpy arrays; edge == -1
     means unmapped.  Pass `prep` (from `prepare_index_device`) to reuse a
@@ -193,7 +258,8 @@ def map_reads_sharded(index, g, batch, device=None, prep=None):
     pc, pn, lengths_w, L = batch.packed()
     if prep is None:
         prep = prepare_index_device(index, g, dev)
-    return map_packed_sharded(prep, index.k, pc, pn, np.asarray(lengths_w), L, R, dev)
+    return map_packed_sharded(prep, index.k, pc, pn, np.asarray(lengths_w), L, R, dev,
+                              resolve_group(group))
 
 
 def pair_info_sharded(g, edge1, start1, edge2, start2, insert_size: float):
@@ -259,8 +325,39 @@ def votes_plain(codes: np.ndarray, n_mask: np.ndarray, lengths: np.ndarray,
     return votes
 
 
+def make_sharded_voter(group, k: int, L: int, pool_len: int):
+    """The vote step: fn(pc, pn, lengths, prep, e_off) -> this rank's
+    (pool_len, 4) int32 votes of its rows (all rows without a group, else
+    its [lo, hi) share), in sub-slices of `VOTE_SUBCHUNK` rows that halve
+    (down to 8,192)
+    on a CUDA out-of-memory error.  The merge across ranks (the JAX
+    package's psum per call) is the caller's one `all_reduce` at the end."""
+    def fn(pc, pn, lengths, prep, e_off):
+        if group is not None:
+            (lo, hi), _ = _rank_rows(pc.shape[0], group)
+            pc, pn, lengths = pc[lo:hi], pn[lo:hi], lengths[lo:hi]
+        sub = VOTE_SUBCHUNK
+        while True:
+            try:
+                part = torch.zeros((pool_len, 4), dtype=torch.int32, device=e_off.device)
+                for a in range(0, pc.shape[0], sub):
+                    part += _votes_shard_body(pc[a : a + sub], pn[a : a + sub],
+                                              lengths[a : a + sub], *prep, e_off,
+                                              k=k, L=L, pool_len=pool_len)
+                return part
+            except torch.cuda.OutOfMemoryError:
+                if sub <= 8192:
+                    raise
+                log.info("vote sub-slice %d out of device memory, retrying at %d",
+                         sub, sub // 2)
+                part = None
+                sub //= 2
+                torch.cuda.empty_cache()
+    return fn
+
+
 def position_votes_sharded(index, g, batch=None, store=None, prep=None,
-                           device=None) -> np.ndarray:
+                           device=None, group=None) -> np.ndarray:
     """Per-position base votes on the device: (len(seq_pool), 4) int32.
 
     Same contract as `alignment.mismatch.position_votes`.  Accepts a single
@@ -270,39 +367,31 @@ def position_votes_sharded(index, g, batch=None, store=None, prep=None,
     and the tally stays on the device until the end.  On a CUDA
     out-of-memory error the sub-slice halves (down to 8,192) and the chunk
     is retried; any other error escapes.  A chunk narrower than k holds no
-    window, so its reads cast no vote (the JAX package raises there)."""
+    window, so its reads cast no vote (the JAX package raises there).
+    group (None: the default group of a multi-process run): each rank votes
+    with its share of every chunk's reads, and one int32 `all_reduce` sums
+    the ranks' tallies."""
     dev = prep[0].device if prep is not None and device is None else resolve_device(device)
+    grp = resolve_group(group)
     pool_len = int(len(g.seq_pool))
     if prep is None:
         prep = prepare_index_device(index, g, dev)
     e_off = torch.from_numpy(np.ascontiguousarray(g.e_off, np.int32)).to(dev)
     if store is not None:
-        chunks = [(ch.device(dev), ch.L) for ch in store.chunks]
+        chunks = [(ch.device(dev), ch.L, ch.n) for ch in store.chunks]
     else:
         pc, pn, lengths, L = batch.packed()
-        chunks = [(tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in (pc, pn, lengths)), L)]
+        chunks = [(tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in (pc, pn, lengths)),
+                   L, batch.codes.shape[0])]
     votes = torch.zeros((pool_len, 4), dtype=torch.int32, device=dev)
-    for (pc, pn, lengths), L in chunks:
+    for (pc, pn, lengths), L, n in chunks:
         if L < index.k:
             continue
-        step = VOTE_SUBCHUNK
-        while True:
-            try:
-                part = torch.zeros_like(votes)
-                for a in range(0, pc.shape[0], step):
-                    part += _votes_shard_body(pc[a : a + step], pn[a : a + step],
-                                              lengths[a : a + step], *prep, e_off,
-                                              k=index.k, L=L, pool_len=pool_len)
-                break
-            except torch.cuda.OutOfMemoryError:
-                if step <= 8192:
-                    raise
-                log.info("vote sub-slice %d out of device memory, retrying at %d",
-                         step, step // 2)
-                part = None
-                step //= 2
-                torch.cuda.empty_cache()
-        votes += part
+        if grp is not None:                   # only the chunk's real reads are shared out
+            pc, pn, lengths = pc[:n], pn[:n], lengths[:n]
+        votes += make_sharded_voter(grp, index.k, L, pool_len)(pc, pn, lengths, prep, e_off)
+    if grp is not None:
+        votes = all_reduce_sum(votes, grp)
     return votes.cpu().numpy()
 
 
@@ -465,14 +554,37 @@ def _hit_shard_body(pc, pn, lengths, tip_keys, k: int, L: int):
     return ((idx >= 0) & valid.reshape(-1)).reshape(valid.shape).any(dim=1)
 
 
+def make_sharded_hitter(group, k: int, L: int, sub: int = 65536):
+    """The prefilter step: fn(pc, pn, lengths, tip_keys) -> (rows,) bool
+    device hits in row order (with a group, every rank tests its [lo, hi)
+    share in sub-slices of `sub` and the hits are gathered on every rank)."""
+    def fn(pc, pn, lengths, tip_keys):
+        sizes = None
+        if group is not None:
+            (lo, hi), sizes = _rank_rows(pc.shape[0], group)
+            pc, pn, lengths = pc[lo:hi], pn[lo:hi], lengths[lo:hi]
+        hits = [_hit_shard_body(pc[a : a + sub], pn[a : a + sub], lengths[a : a + sub],
+                                tip_keys, k=k, L=L)
+                for a in range(0, pc.shape[0], sub)]
+        hits = (torch.cat(hits) if hits
+                else torch.zeros(0, dtype=torch.bool, device=tip_keys.device))
+        if group is None:
+            return hits
+        return gather_rows(hits.to(torch.uint8), group, sizes).to(torch.bool)
+    return fn
+
+
 def hit_filter_store(store, tip_words: np.ndarray, k: int, device=None,
-                     sub: int = 65536) -> np.ndarray:
+                     sub: int = 65536, group=None) -> np.ndarray:
     """(store.n,) bool: read has >= 1 canonical window among tip_words.
 
     The gap closer's device prefilter: the tip-region table is tiny, so the
     expensive full-index search runs only for candidate reads afterwards.
-    A chunk narrower than k holds no window, so none of its reads hits."""
+    A chunk narrower than k holds no window, so none of its reads hits.
+    group (None: the default group of a multi-process run): every rank
+    tests its share of each chunk's reads, and the hits are gathered."""
     dev = resolve_device(device)
+    grp = resolve_group(group)
     tw = torch.from_numpy(np.ascontiguousarray(K.words_to_keys(tip_words).T)).to(dev)
     out = np.zeros(store.n, bool)
     # queue every sub-slice of every chunk first, pull afterwards
@@ -482,12 +594,12 @@ def hit_filter_store(store, tip_words: np.ndarray, k: int, device=None,
             futs.append(None)
             continue
         pc, pn, lengths = ch.device(dev)
-        futs.append([_hit_shard_body(pc[a : a + sub], pn[a : a + sub], lengths[a : a + sub],
-                                     tw, k=k, L=ch.L)
-                     for a in range(0, pc.shape[0], sub)])
+        if grp is not None:
+            pc, pn, lengths = pc[: ch.n], pn[: ch.n], lengths[: ch.n]
+        futs.append(make_sharded_hitter(grp, k, ch.L, sub)(pc, pn, lengths, tw))
     c0 = 0
     for ch, f in zip(store.chunks, futs):
         if f is not None:
-            out[c0 : c0 + ch.n] = torch.cat(f).cpu().numpy()[: ch.n]
+            out[c0 : c0 + ch.n] = f.cpu().numpy()[: ch.n]
         c0 += ch.n
     return out

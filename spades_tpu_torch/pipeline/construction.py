@@ -3,7 +3,9 @@
 Mirrors SPAdes' Construction composite stage
 (`src/common/stages/construction.cpp:439-453`: KMerCounting of (k+1)-mers ->
 ExtensionIndexBuilder -> GraphCondenser -> coverage fill) as a function
-pipeline over the counting engine, on one device.
+pipeline over the counting engine, on one device or, under a process group,
+with the sharded count of `parallel/sharded_count.py` (ConstructionMPI's
+split of the reads, `hpcspades/mpi/stages/construction_mpi.cpp`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..ops import condense as _condense
 from ..ops import count as _count
 from ..ops import early_clip as _early
 from ..ops import extension as _ext
+from ..parallel.distributed import EXCHANGED, resolve_group
 
 
 @dataclass
@@ -33,6 +36,20 @@ class ConstructionResult:
     timings: dict = field(default_factory=dict)
 
 
+def _count_sharded(batches, k1: int, group, dev, tm: dict) -> _count.KmerCounts:
+    """The (k+1)-mer count across the group: each rank's share of every
+    batch goes through the sharded counter (one exchange per batch, one
+    gather at the end)."""
+    from ..parallel.sharded_count import count_kmers_sharded
+
+    sent0 = EXCHANGED["bytes"]
+    t0 = time.perf_counter()
+    p1 = count_kmers_sharded(batches, k1, group, dev, share=True, timings=tm)
+    tm["sharded_count_s"] = time.perf_counter() - t0
+    tm["exchanged_bytes"] = EXCHANGED["bytes"] - sent0
+    return p1
+
+
 def construct_graph(
     sequences,
     k: int,
@@ -45,6 +62,7 @@ def construct_graph(
     extra_sequences=None,
     read_store=None,
     device=None,
+    group=None,
 ) -> ConstructionResult:
     """Build the condensed de Bruijn graph at odd k from a sequence list.
 
@@ -60,16 +78,25 @@ def construct_graph(
     tip length bound defaults to read_length - k (construction.cpp:297-300).
     Both counting branches meet before the index build, so the clippers see
     the same masks either way; their time is `timings["early_clip_s"]`.
+
+    group: the process group the count runs across (None: the default group
+    of a multi-process run, else one device).  Under a group each rank
+    counts its `process_read_slice` of every batch with `count_kmers_sharded`
+    and every rank gets the whole table (`timings["exchanged_bytes"]` is
+    what this rank sent); prev-K contigs then take the two-pass path, as in
+    the JAX package with several devices.  Every later step runs whole on
+    every rank.
     """
     if k % 2 == 0:
         raise ValueError("k must be odd")
     dev = resolve_device(device)
+    grp = resolve_group(group)
     tm: dict = {}
     k1 = k + 1
     # prev-K contigs join the same device merge with zeroed counts: one fused
     # table replaces a separate count + host merge + lookup.  A coverage
     # filter must see read counts only, so min_count > 1 takes two passes.
-    fused_structure = bool(extra_sequences) and min_count == 1
+    fused_structure = bool(extra_sequences) and min_count == 1 and grp is None
     structure = None
     if fused_structure:
         structure = batch_iter(chop_sequences(extra_sequences, k1), batch_size=batch_size)
@@ -77,8 +104,11 @@ def construct_graph(
         batches = read_store.chunks
     else:
         batches = batch_iter(chop_sequences(sequences, k1), batch_size=batch_size)
-    p1 = _count.count_reads(batches, k1, timings=tm, structure_batches=structure,
-                            device=dev)
+    if grp is None:
+        p1 = _count.count_reads(batches, k1, timings=tm, structure_batches=structure,
+                                device=dev)
+    else:
+        p1 = _count_sharded(batches, k1, grp, dev, tm)
     if min_count > 1:
         t0 = time.perf_counter()
         keep = p1.counts >= min_count

@@ -20,9 +20,20 @@ after it; rna, corona and sewage skip it), with or without repeat resolution,
 careful mode (`--careful`, `--mismatch-correction`), long reads (`--pacbio`,
 `--nanopore`, `--sanger`), a GFA start (`--assembly-graph`) and
 `--series-analysis`, and `--read-cov-threshold` (the reads' median k-mer
-coverage on the device, `tools/read_filter.py`).  The one option whose code is
-not ported yet (`--num-processes` above 1) raises `NotImplementedError`
-naming the ROADMAP item that ports it; nothing is skipped silently.
+coverage on the device, `tools/read_filter.py`).
+
+A multi-process run starts one process per card, each with the same
+arguments and its own rank:
+
+    python -m spades_tpu_torch.pipeline.main ... --num-processes N
+        --process-id I --coordinator host:port [--dist-backend gloo]
+
+(or the SPADES_NUM_PROCESSES / SPADES_PROCESS_ID / SPADES_COORDINATOR
+environment).  Each process joins the group before any device use, runs the
+whole assembly on the whole input and holds the same state; the counting,
+mapping, prefilter and vote share their reads out across the group
+(`parallel/`).  Only rank 0 writes the output directory: the other ranks
+write into a private temporary directory, removed at their end.
 """
 from __future__ import annotations
 
@@ -158,11 +169,16 @@ def build_parser() -> argparse.ArgumentParser:
     adv.add_argument("--grid-nnodes", type=int, default=1, help="node count for --grid-engine")
     adv.add_argument("--grid-extra", default=None, help="extra scheduler directives for --grid-engine")
     adv.add_argument("--coordinator", default=None,
-                     help="multi-process run: coordination address host:port (not ported yet)")
-    adv.add_argument("--num-processes", type=int, default=1,
-                     help="multi-process run: total process count (not ported yet)")
+                     help="multi-process run: rank 0's address host:port (torch.distributed)")
+    adv.add_argument("--num-processes", type=int,
+                     default=int(os.environ.get("SPADES_NUM_PROCESSES", "1")),
+                     help="multi-process run: total process count, one per card "
+                          "(default: SPADES_NUM_PROCESSES, else 1)")
     adv.add_argument("--process-id", type=int, default=None,
                      help="multi-process run: this process's rank")
+    adv.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                     help="multi-process run: collective backend (default: nccl on cuda, "
+                          "gloo on the cpu; gloo lets several ranks share one card)")
     adv.add_argument("--tmp-dir", default=None, help="directory for temporary files")
     adv.add_argument("--config-file", default=None,
                      help="user config overlay (YAML or section.key value lines) "
@@ -197,14 +213,6 @@ def detect_mode(args) -> str:
         if getattr(args, m, False):
             return m
     return "multicell"
-
-
-def refuse_unported(args) -> None:
-    """Raise `NotImplementedError` for every option whose code is not ported
-    yet, naming the ROADMAP item that ports it."""
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            "--num-processes > 1 (multi-process runs) is not ported yet (ROADMAP A15)")
 
 
 def setup_logging(output_dir: str) -> None:
@@ -258,8 +266,47 @@ def main(argv=None) -> int:
         print("error: no input reads specified", file=sys.stderr)
         return 64
     mode = detect_mode(args)
-    refuse_unported(args)
     device = resolve_device(args.device)
+    private = _join_run(args, device) if args.num_processes > 1 else None
+    try:
+        return _assemble(args, argv, raw_argv, numbered, mode, device)
+    finally:
+        if args.num_processes > 1:
+            import shutil
+
+            import torch.distributed as dist
+
+            if private is not None:
+                shutil.rmtree(private, ignore_errors=True)
+            dist.destroy_process_group()
+
+
+def _join_run(args, device):
+    """Join the process group of a multi-process run before any device use
+    (the spades-hpc MPI_Init point, `main_mpi.cpp:73`).  Every rank but 0
+    gets a private temporary output directory (holding a copy of the real
+    one when it restarts from a checkpoint); returns it, or None on rank 0."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ..parallel.distributed import init_distributed
+
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     backend=args.dist_backend, device=device)
+    rank = dist.get_rank()
+    if rank == 0:
+        return None
+    private = tempfile.mkdtemp(prefix=f"spades_rank{rank}_")
+    if (args.cont or args.restart_from) and os.path.isdir(args.output_dir):
+        import shutil
+
+        shutil.copytree(args.output_dir, private, dirs_exist_ok=True)
+    args.output_dir = private
+    return private
+
+
+def _assemble(args, argv, raw_argv, numbered, mode, device) -> int:
     if args.tmp_dir:
         import tempfile
 
@@ -569,6 +616,11 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(os.path.join(pdir, "trace.json"))
         log.info("torch profiler trace -> %s", pdir)
     _log_launches(log)
+    if args.num_processes > 1:
+        from ..parallel.distributed import EXCHANGED
+
+        log.info("collectives: %d bytes sent in %d", EXCHANGED["bytes"],
+                 EXCHANGED["collectives"])
     log.info("======= spades_tpu_torch finished. Results in %s", args.output_dir)
     return 0
 

@@ -7,8 +7,8 @@ Both CLIs run in this process on the same FASTQ files (a 15,000-nt
 paths at lowered thresholds are held by `tests/test_torch_rr.py`).  Their
 output files and `run_spades.yaml` must be byte-identical, the GFA but for
 its header line.
-Every option whose code is not ported must raise `NotImplementedError`
-naming its ROADMAP item, before anything is read or written.
+`--num-processes` above 1 without a coordinator must raise a `ValueError`
+naming it, before anything is read or written.
 """
 import os
 
@@ -132,34 +132,36 @@ def test_yaml_emitter_quotes_what_yaml_would_misread():
 
 
 @pytest.mark.parametrize("extra, item", [
-    # the RNA, bio/corona and series-analysis options and --read-cov-threshold
-    # are ported: each former case keeps its flags and meets the refusal left
-    (["--rnaviral", "--num-processes", "2"], "A15"),    # error correction is the default
+    # every option is ported: each former refusal case keeps its flags and
+    # meets the one check left, a multi-process run without a coordinator
+    (["--rnaviral", "--num-processes", "2"], "coordinator"),    # error correction is the default
     (["--only-error-correction", "--rna", "--read-cov-threshold", "3",
-      "--num-processes", "2"], "A15"),
-    (["--iontorrent", "--bio", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--read-cov-threshold", "3", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--num-processes", "2"], "A15"),
+      "--num-processes", "2"], "coordinator"),
+    (["--iontorrent", "--bio", "--num-processes", "2"], "coordinator"),
+    (["--only-assembler", "--read-cov-threshold", "3", "--num-processes", "2"], "coordinator"),
+    (["--only-assembler", "--num-processes", "2"], "coordinator"),
     (["--only-assembler", "--rna", "--fl-rna", "lr.fq", "--read-cov-threshold", "3",
-      "--num-processes", "2"], "A15"),
+      "--num-processes", "2"], "coordinator"),
     (["--only-assembler", "--meta", "--series-analysis", "s.yaml", "--num-processes", "2"],
-     "A15"),
+     "coordinator"),
     (["--only-assembler", "--nanopore", "lr.fq", "--custom-hmms", "p.hmm",
-      "--read-cov-threshold", "3", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--fl-rna", "lr.fq", "--num-processes", "2"], "A15"),
+      "--read-cov-threshold", "3", "--num-processes", "2"], "coordinator"),
+    (["--only-assembler", "--fl-rna", "lr.fq", "--num-processes", "2"], "coordinator"),
     (["--only-assembler", "--custom-hmms", "p.hmm", "--read-cov-threshold", "3",
-      "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--assembly-graph", "g.gfa", "--rna", "--num-processes", "2"], "A15"),
-    (["--careful", "--corona", "--read-cov-threshold", "3", "--num-processes", "2"], "A15"),
-    (["--mismatch-correction", "--rnaviral", "--num-processes", "2"], "A15"),
+      "--num-processes", "2"], "coordinator"),
+    (["--only-assembler", "--assembly-graph", "g.gfa", "--rna", "--num-processes", "2"],
+     "coordinator"),
+    (["--careful", "--corona", "--read-cov-threshold", "3", "--num-processes", "2"], "coordinator"),
+    (["--mismatch-correction", "--rnaviral", "--num-processes", "2"], "coordinator"),
     (["--only-assembler", "--meta", "--ss", "rf", "--read-cov-threshold", "3",
-      "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--rna", "--ss", "fr", "--num-processes", "2"], "A15"),
-    (["--only-assembler", "--plasmid", "--num-processes", "4"], "A15"),
+      "--num-processes", "2"], "coordinator"),
+    (["--only-assembler", "--rna", "--ss", "fr", "--num-processes", "2"], "coordinator"),
+    (["--only-assembler", "--plasmid", "--num-processes", "4"], "coordinator"),
 ])
-def test_unported_options_raise(tmp_path, extra, item):
+def test_num_processes_without_a_coordinator_raise(tmp_path, monkeypatch, extra, item):
+    monkeypatch.delenv("SPADES_COORDINATOR", raising=False)
     out = tmp_path / "o"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         t_main.main(["-1", "missing_1.fq", "-2", "missing_2.fq", "-o", str(out),
                      "--device", "cpu"] + extra)
     assert not out.exists()

@@ -257,6 +257,10 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "spades_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    assert {f"spades_tpu_torch/parallel/{m}.py" for m in (
+        "distributed", "sharded_count", "sharded_extension", "sharded_de", "sharded_mapping",
+        "multihost_dryrun", "dryrun")} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -425,3 +425,95 @@ def test_count_batch_device_tiled_cuda_matches_cpu(cuda, k, tile):
         want = fn(*host, L, k, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def test_kernel_on_row_slices_matches_plain(cuda):
+    """A rank's share of a chunk is a row slice starting at any row: the
+    kernel reads from the 16-byte line holding a slice's first byte."""
+    pc, pn, lengths, L = _random_batch(120, 1001, 152, 55).packed()
+    pc, pn, lengths = (torch.from_numpy(np.ascontiguousarray(a)) for a in (pc, pn, lengths))
+    on_card = [t.to(cuda) for t in (pc, pn, lengths)]
+    for lo, hi in ((1, 500), (333, 1001), (7, 8), (500, 500)):
+        got = CK.canonical_window_keys(*(t[lo:hi] for t in on_card), L, 55, strand=True)
+        want = CK.canonical_window_keys_plain(*(t[lo:hi] for t in (pc, pn, lengths)), L, 55,
+                                              strand=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (lo, hi)
+
+
+@pytest.mark.parametrize("k", [21, 55])
+def test_sharded_paths_nccl_world_size_1_match_cpu(cuda, tmp_path, k):
+    """NCCL at world size 1: the sharded count, extension masks and
+    construct_graph under the group equal the CPU's single-device results."""
+    from spades_tpu_torch.parallel.dryrun import (RankPool, count_task, extension_task,
+                                                  graph_task)
+
+    reads, _ = _reads(130 + k, G=6000, n=800)
+    with RankPool(1, "cuda", "nccl", f"file://{tmp_path}/s", timeout_s=300) as pool:
+        (kc, _shard), = pool.run(count_task, reads, k, "cuda", group="world")
+        (ei, _), = pool.run(extension_task, reads, k, "cuda", group="world")
+        (gr,) = pool.run(graph_task, reads, k, "cuda", group="world")
+    ref = C.count_sequences(reads, k, device="cpu")
+    assert np.array_equal(kc.words, ref.words) and np.array_equal(kc.counts, ref.counts)
+    ref_ei = build_extension_index(C.count_sequences(reads, k + 1, device="cpu"))
+    for f in ("kmers", "in_mask", "out_mask"):
+        assert np.array_equal(getattr(ei, f), getattr(ref_ei, f))
+    res = construct_graph(reads, k, device="cpu")
+    assert np.array_equal(gr["words"], res.p1_counts.words)
+    for f in GRAPH_FIELDS:
+        assert np.array_equal(gr[f], getattr(res.graph, f)), f
+
+
+def test_group_paths_two_gloo_ranks_on_one_card_match_cpu(cuda, tmp_path):
+    """Two ranks on one card under gloo (which takes the card's tensors):
+    count, graph, mapping, votes and hits equal the CPU's."""
+    from spades_tpu_torch.alignment.mapper import build_edge_index
+    from spades_tpu_torch.parallel.dryrun import (RankPool, count_task, dryrun_multigpu,
+                                                  graph_task, mapping_task)
+
+    reads, _ = _reads(140, G=6000, n=1001)
+    g = construct_graph(reads, 21, device="cpu").graph
+    index = build_edge_index(g)
+    tips = index.kmers[::9].copy()
+    ref_map = mapping_task(index, g, reads, tips, "cpu")
+    ref = C.count_sequences(reads, 21, device="cpu")
+    with RankPool(2, "cuda", "gloo", f"file://{tmp_path}/s", timeout_s=300) as pool:
+        counts = pool.run(count_task, reads, 21, "cuda", group="world")
+        graphs = pool.run(graph_task, reads, 21, "cuda", group="world")
+        maps = pool.run(mapping_task, index, g, reads, tips, "cuda", group="world")
+    for (kc, _), gr, got in zip(counts, graphs, maps):
+        assert np.array_equal(kc.words, ref.words) and np.array_equal(kc.counts, ref.counts)
+        for f in GRAPH_FIELDS:
+            assert np.array_equal(gr[f], getattr(g, f)), f
+        for a, b in zip(got[0] + got[1], ref_map[0] + ref_map[1]):
+            assert np.array_equal(a, b)
+        assert np.array_equal(got[2], ref_map[2]) and np.array_equal(got[3], ref_map[3])
+    assert dryrun_multigpu(2, "cuda", "gloo")["world_size"] == 2
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_distance_clusters_on_card_match_cpu(cuda, tmp_path, backend):
+    """`estimate_simple_sharded` on the card (NCCL at world size 1, or two
+    gloo ranks on one card): e1 and e2 exact, dist and weight within rtol
+    1e-5 of the port's CPU result (CUDA's `index_add_` sums float32 in
+    another order).  Heavy groups of many rows make the sums long."""
+    from spades_tpu_torch.paired.paired_info import PairedIndex
+    from spades_tpu_torch.parallel.dryrun import RankPool
+    from spades_tpu_torch.parallel.sharded_de import estimate_simple_sharded
+
+    rng = np.random.default_rng(11)
+    n = 200_000
+    e1 = rng.integers(0, 300, n)
+    e2 = rng.integers(0, 30, n)
+    d = rng.integers(0, 2000, n)
+    o = np.lexsort((d, e2, e1))
+    pi = PairedIndex(e1[o], e2[o], d[o], (rng.integers(1, 50, n) / 7.0)[o])
+    ref = estimate_simple_sharded(pi, device="cpu")
+    world = 1 if backend == "nccl" else 2
+    with RankPool(world, "cuda", backend, f"file://{tmp_path}/s", timeout_s=300) as pool:
+        got = pool.run(estimate_simple_sharded, pi, group="world", device="cuda")
+    assert ref.e1.size > 1000
+    for res in got:
+        assert np.array_equal(res.e1, ref.e1) and np.array_equal(res.e2, ref.e2)
+        np.testing.assert_allclose(res.dist, ref.dist, rtol=1e-5)
+        np.testing.assert_allclose(res.weight, ref.weight, rtol=1e-5)

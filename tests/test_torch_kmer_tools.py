@@ -39,6 +39,7 @@ from spades_tpu_torch.io import binary_kmers as t_bk
 from spades_tpu_torch.io import fastx as t_fastx
 from spades_tpu_torch.ops import hll as t_hll
 from spades_tpu_torch.ops.count import count_sequences as t_count
+from spades_tpu_torch.parallel import sharded_count as t_sc
 from spades_tpu_torch.pipeline import main as t_main
 from spades_tpu_torch.tools import kmer_estimating as t_est
 from spades_tpu_torch.tools import kmercount as t_kmercount
@@ -185,12 +186,12 @@ def test_mix32_matches_on_edge_values():
     vals = np.array(EDGE_WORDS + list(rng.integers(2**32 - 4096, 2**32, 2000))
                     + list(rng.integers(0, 2**32, 2000)), np.uint64).astype(np.uint32)
     want = np.asarray(j_mix32(jnp.asarray(vals))).astype(np.int64)
-    got = t_hll._mix32(torch.from_numpy(vals.astype(np.int64)))
+    got = t_sc._mix32(torch.from_numpy(vals.astype(np.int64)))
     assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
     c = np.array(EDGE_WORDS, np.uint64).astype(np.uint32)
     for const in (0x85EBCA6B, 0xC2B2AE35, 0x1000193, 2**32 - 1):
         want = (c.astype(np.uint64) * np.uint64(const)) & np.uint64(0xFFFFFFFF)
-        got = t_hll._mul32(torch.from_numpy(c.astype(np.int64)), const).numpy()
+        got = t_sc._mul32(torch.from_numpy(c.astype(np.int64)), const).numpy()
         assert np.array_equal(got, want.astype(np.int64))
 
 
