@@ -67,7 +67,7 @@
    after phase 7, makes the small runs of phases 9 to 11 (the community cut
    to 300 kb, the hybrid run, every mode, the GFA start) on the CPU while
    the card works; every file each wrote must equal the card's.
-13. Every shape phases 3 to 17 gave the kernel that phase 2 did not hold
+13. Every shape phases 3 to 19 gave the kernel that phase 2 did not hold
    yet, against the plain version and timed (run last).
 14. rnaSPAdes at full width: a synthetic stranded (dUTP) transcriptome of
    2,000 genes (400 with a second isoform, 33 convergent pairs overlapping
@@ -140,6 +140,19 @@
    corrected reads, contigs and scaffolds must equal phase 8's byte for
    byte while rank 1 writes nothing.  Per-rank wall times, bytes sent and
    B1 launches per rank are printed.
+19. The user paths no other phase takes, a card process and a CPU worker
+   started before phase 14: (a) phase 3's isolate with a mate-pair library of
+   its genome (RF, insert 3,000 +- 300, 5x) through `run_assembly([21, 33,
+   55], paired_libs=[PE, MP], min_count=2)` (the two-pass structure count at
+   K = 33 and 55, the mate pairs to the scaffold graph; contigs laid onto the
+   genome, scaffolds' N50 at least the contigs'); (b) the CLI on the card and
+   on the CPU, every file equal: `--iontorrent -k 21,33,55` on the gap set
+   with homopolymer-length errors, and the gap set with a 3 kb RF mate-pair
+   library at 10x and `--cov-cutoff 2 -k 21,33,55`; (c) on the gap set's
+   K = 55 graph after Simplification, card against CPU: `map_store` with the
+   kmer-mapper on reads of which at least 1 % stay unmapped on the device (the
+   host residue pass must recover some), and MismatchCorrection's string path
+   (`correct_mismatches(g, reads)`) restoring bases planted into the graph.
 
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
@@ -893,6 +906,36 @@ def repeat_joints(seq: str, strands, flank: int = 60):
         a = lo
 
 
+def lay_onto_genome(what: str, records, genome, rng, n_sample: int = 200):
+    """Up to n_sample (name, sequence) records of 1 kb or more, drawn with
+    `rng`, each laid onto `genome` (uint8 codes) with at most a few
+    substitutions, or else cut into exact pieces of the genome that join
+    inside repeats (`repeat_joints`); fails on any other.  Returns the
+    number of such records and what the sample showed."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fwd = acgt[genome].tobytes().decode()
+    rev = acgt[(3 - genome)[::-1]].tobytes().decode()
+    long_ = [(name, seq) for name, seq in records if len(seq) >= 1000]
+    picks = rng.choice(len(long_), min(n_sample, len(long_)), replace=False)
+    placed = substitutions_against([long_[i][1] for i in picks], [genome])
+    subs = {long_[i][0]: d if d is not None and d <= max(2, 0.003 * len(long_[i][1]))
+            else None for i, (d, _g) in zip(picks, placed)}
+    joined = {long_[i][0]: repeat_joints(long_[i][1], (fwd, rev)) for i in picks
+              if subs[long_[i][0]] is None}
+    wrong = [name for name, cuts in joined.items() if cuts is None]
+    check(not wrong, f"{len(wrong)} of {len(picks)} sampled {what} of 1 kb or more lie "
+                     f"nowhere in the genome or its reverse complement, not even as "
+                     f"pieces joined at repeats: {wrong[:5]}")
+    placed = {n: d for n, d in subs.items() if d is not None}
+    return len(long_), {"checked": len(subs), "exact": sum(d == 0 for d in placed.values()),
+                        "most_substitutions": max(placed.values(), default=None),
+                        "joined_at_repeats": len(joined),
+                        "joints": sum(len(c) for c in joined.values()),
+                        "joined_lengths": sorted(len(seq) for n, seq in long_ if n in joined)}
+
+
 def check_index_against_host(name, prep, host_index, k) -> None:
     """A device-built index (`MappingEngine._device_index`) equals the host's
     `build_edge_index` of the same graph, row for row."""
@@ -917,6 +960,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, corrected, k_list=(21, 3
     import torch
 
     from spades_tpu_torch import native
+    from spades_tpu_torch.alignment import mapper as MR
     from spades_tpu_torch.alignment.mapper import MappingEngine, build_edge_index
     from spades_tpu_torch.io.contigs import extract_contigs
     from spades_tpu_torch.io.gfa import read_gfa
@@ -969,6 +1013,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, corrected, k_list=(21, 3
     S.GAP_CLOSER_STATS.clear()
     S.RR_STATS.clear()
     S.MISMATCH_STATS.clear()
+    MR.RESIDUE_STATS.clear()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     CK.canonical_window_keys.launches = 0
@@ -1031,42 +1076,18 @@ def phase_assembly(dev, workdir: str, state, seed: int, corrected, k_list=(21, 3
     check(abs(stats["total"] - len(genome)) <= total_tolerance * len(genome),
           f"contigs total {stats['total']} nt, not within {total_tolerance:.0%} of the "
           f"genome's {len(genome)}")
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    fwd = acgt[genome].tobytes().decode()
-    rev = acgt[(3 - genome)[::-1]].tobytes().decode()
     rng = np.random.default_rng(seed)
-
-    def sample_in_genome(what, records):
-        """Up to n_sample records of 1 kb or more, each laid onto the genome
-        with at most a few substitutions, or else cut into exact pieces of the
-        genome that join inside repeats (`repeat_joints`)."""
-        long_ = [(name, seq) for name, seq in records if len(seq) >= 1000]
-        picks = rng.choice(len(long_), min(n_sample, len(long_)), replace=False)
-        placed = substitutions_against([long_[i][1] for i in picks], [genome])
-        subs = {long_[i][0]: d if d is not None and d <= max(2, 0.003 * len(long_[i][1]))
-                else None for i, (d, _g) in zip(picks, placed)}
-        joined = {long_[i][0]: repeat_joints(long_[i][1], (fwd, rev)) for i in picks
-                  if subs[long_[i][0]] is None}
-        wrong = [name for name, cuts in joined.items() if cuts is None]
-        check(not wrong, f"{len(wrong)} of {len(picks)} sampled {what} of 1 kb or more lie "
-                         f"nowhere in the genome or its reverse complement, not even as "
-                         f"pieces joined at repeats: {wrong[:5]}")
-        placed = {n: d for n, d in subs.items() if d is not None}
-        return len(long_), {"checked": len(subs), "exact": sum(d == 0 for d in placed.values()),
-                            "most_substitutions": max(placed.values(), default=None),
-                            "joined_at_repeats": len(joined),
-                            "joints": sum(len(c) for c in joined.values()),
-                            "joined_lengths": sorted(len(seq) for n, seq in long_ if n in joined)}
-
-    n_long, contig_check = sample_in_genome("contigs", [(c.name, c.seq) for c in res.contigs])
+    n_long, contig_check = lay_onto_genome("contigs", [(c.name, c.seq) for c in res.contigs],
+                                           genome, rng, n_sample)
     check(n_long > 0, "assembly: no contig of 1 kb or more")
     broken_path = os.path.join(out, "misc", "broken_scaffolds.fasta")
     broken = {"file": os.path.exists(broken_path), "pieces_1kb": 0}
     if broken["file"]:
         from spades_tpu_torch.io.fastx import read_fastx
 
-        broken["pieces_1kb"], broken["check"] = sample_in_genome(
-            "broken scaffolds", [(r.name, r.seq) for r in read_fastx(broken_path)])
+        broken["pieces_1kb"], broken["check"] = lay_onto_genome(
+            "broken scaffolds", [(r.name, r.seq) for r in read_fastx(broken_path)], genome,
+            rng, n_sample)
     n_gapped = sum(1 for sc in res.scaffolds if "N" in sc.seq)
     for sub in ("", f"K{k_last}"):
         for name in OUTPUT_FILES:
@@ -1088,6 +1109,7 @@ def phase_assembly(dev, workdir: str, state, seed: int, corrected, k_list=(21, 3
         "construction": {f"k={k}": tm for k, tm in S.CONSTRUCT_PHASES},
         "gap_closer": {f"k={k} {s}": st for k, s, st in S.GAP_CLOSER_STATS},
         "repeat_resolution": rr,
+        "residue_pass": list(MR.RESIDUE_STATS),
         "per_stage": per_stage,
         "simplified_graph": simplified,
         "launches": launches,
@@ -1240,6 +1262,7 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000,
     import numpy as np
     import torch
 
+    from spades_tpu_torch.alignment import mapper as MR
     from spades_tpu_torch.hammer import correct_reads
     from spades_tpu_torch.ops import cuda_kernels as CK
     from spades_tpu_torch.pipeline import spades_stages as S
@@ -1262,6 +1285,7 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000,
         S.GAP_CLOSER_STATS.clear()
         S.RR_STATS.clear()
         S.MISMATCH_STATS.clear()
+        MR.RESIDUE_STATS.clear()
         out = os.path.join(workdir, f"gap_{where.type}")
         if where == dev:
             # -- the gap path: launch counts from 0, read right after ---------
@@ -1296,7 +1320,8 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000,
         files = {f: read_bytes(os.path.join(out, f)) for f in RR_FILES}
         results[where.type] = (res, files, [(s, dict(st_)) for _, s, st_ in S.GAP_CLOSER_STATS],
                                saves, {s: dict(st_) for _, s, st_ in S.RR_STATS}, out,
-                               (with_q, (fixed, st), tm, list(S.MISMATCH_STATS)))
+                               (with_q, (fixed, st), tm, list(S.MISMATCH_STATS)),
+                               list(MR.RESIDUE_STATS))
 
     got = results[dev.type]
     ref = results["cpu"]
@@ -1352,6 +1377,7 @@ def phase_gap(dev, workdir: str, seed: int, genome_size: int = 300_000,
         "mismatch_correction_fixed": [c for _k, c in mm],
         "gap_closer": {s: st_ for s, st_ in got[2]},
         "repeat_resolution": got[4],
+        "residue_pass": got[7],
         "index_entries": {name: int(z["e1"].shape[0]) for name, z in got[3].items()
                           if "e1" in z.files},
         "contig_stats": assembly_stats(got[0].contigs),
@@ -1418,7 +1444,21 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
             "command": " ".join(os.path.relpath(c, workdir) if c.startswith(workdir) else c
                                 for c in cmd[1:]),
             "wall_s": wall_s,
-            "launches": launches, "run_spades_yaml_lines": yaml_lines}, launches
+            "launches": launches, "run_spades_yaml_lines": yaml_lines,
+            "residue_pass": residue_lines(log_text)}, launches
+
+
+def residue_lines(log_text: str) -> list:
+    """The `map_store` lines of a run's log (`alignment/mapper.py`): per
+    mapping pass given a kmer-mapper, its reads, where they mapped, and what
+    the kmer-mapper residue pass re-ran and recovered."""
+    import re
+
+    return [{"reads": int(n), "on": on, "unmapped": int(u), "rerun": int(r),
+             "recovered": int(c)}
+            for n, on, u, r, c in re.findall(
+                r"map_store: (\d+) reads on the (\w+), (\d+) unmapped there; kmer-mapper "
+                r"residue pass re-ran (\d+), recovered (\d+)", log_text)]
 
 
 # ---------------------------------------------------------------------------
@@ -1582,6 +1622,7 @@ def phase_meta(dev, workdir: str, seed: int, small_sizes: dict, sizes=META_SIZES
     import numpy as np
     import torch
 
+    from spades_tpu_torch.graph import simplify as SIMP
     from spades_tpu_torch.ops import cuda_kernels as CK
     from spades_tpu_torch.pipeline import spades_stages as S
     from spades_tpu_torch.pipeline import stages as ST
@@ -1602,6 +1643,7 @@ def phase_meta(dev, workdir: str, seed: int, small_sizes: dict, sizes=META_SIZES
         torch.cuda.reset_peak_memory_stats(dev)
     CK.canonical_window_keys.launches = 0
     shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    SIMP.ENGINE_RUNS.update(native=0, numpy=0)
     out = os.path.join(workdir, "meta")
     t0 = time.perf_counter()
     with after_every_stage(stage_launches_hook(per_stage)):
@@ -1612,6 +1654,12 @@ def phase_meta(dev, workdir: str, seed: int, small_sizes: dict, sizes=META_SIZES
     wall["run_assembly_s"] = time.perf_counter() - t0
     launches = CK.canonical_window_keys.launches
     CK.canonical_window_keys.launch_shapes = None
+    engines = dict(SIMP.ENGINE_RUNS)
+    # meta's relative-coverage flanking takes Simplification off the native
+    # engine onto the numpy loop (`graph/simplify.py:simplify`); the raw
+    # pass, without it, stays native
+    check(engines == {"native": len(k_list), "numpy": len(k_list)},
+          f"meta: simplification ran {engines}, not the numpy loop once per K")
     peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
                 else None)
 
@@ -1696,6 +1744,7 @@ def phase_meta(dev, workdir: str, seed: int, small_sizes: dict, sizes=META_SIZES
         "launches": launches,
         "launches_by_caller": launches_by_caller(shapes),
         "launches_by_stage": {s: n for s, n in per_stage.items() if n},
+        "simplify_engine_runs": engines,
         "peak_device_gib": peak_gib,
         "contig_stats": assembly_stats(res.contigs),
         "contigs_1kb": len(long_), "exact_in_one_genome": exact_one,
@@ -3612,6 +3661,443 @@ def phase_sharded(dev, workdir: str, worker):
         shapes[tuple(row[:4])] += row[4]
     return (dict(phase="multi_gpu", waited_s=wait_s, **rec), launches, shapes)
 
+
+# ---------------------------------------------------------------------------
+# 19. the user paths no other phase takes: a mate-pair library with
+#     --cov-cutoff over several K, --iontorrent, the kmer-mapper residue pass
+#     and MismatchCorrection's string path
+# ---------------------------------------------------------------------------
+
+# (a)'s mate pairs over the isolate: RF, insert normal(3,000, 300), 150 bp at
+# 5x (83,333 pairs), 0.3 % substitutions
+ISOLATE_MP = {"coverage": 5, "insert": (3000, 300), "error_rate": 0.003}
+GAP_MP_COVERAGE = 10              # (b)'s mate pairs over the gap genome: the same library
+P19_K = (21, 33, 55)
+HOMOPOLYMER_RATE = 0.01           # (b)'s share of runs of 3 or more bases made longer or shorter
+ARM_READS = 5_000                 # (c)'s most reads drawn from removed bulge arms
+PLANTED_MISMATCHES = 200          # (c)'s substitutions planted into the graph
+
+
+def homopolymer_errors(codes, rate: float, seed: int):
+    """(n, rl) uint8 reads as strings, with `rate` of their runs of 3 or more
+    equal bases lengthened or shortened by one (IonTorrent's usual error),
+    drawn from `seed`.  Returns (reads, runs changed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, rl = codes.shape
+    first = np.ones((n, rl), bool)
+    first[:, 1:] = codes[:, 1:] != codes[:, :-1]
+    rows, cols = np.nonzero(first)                   # run starts, row-major
+    ends = np.full(rows.size, rl)
+    same = rows[1:] == rows[:-1]
+    ends[:-1][same] = cols[1:][same]
+    pick = ((ends - cols) >= 3) & (rng.random(rows.size) < rate)
+    grow = rng.random(rows.size) < 0.5
+    reads = read_strings(codes)
+    # right to left, so that an edit leaves the positions of earlier runs alone
+    for i in np.flatnonzero(pick)[::-1]:
+        r, c, s = rows[i], cols[i], reads[rows[i]]
+        reads[r] = s[:c] + s[c] + s[c:] if grow[i] else s[:c] + s[c + 1:]
+    return reads, int(pick.sum())
+
+
+def write_reads(path: str, seqs, mate: int, prefix: str) -> str:
+    """Reads of any length as FASTQ, quality I throughout."""
+    with open(path, "w") as fh:
+        fh.writelines(f"@{prefix}{i}/{mate}\n{s}\n+\n{'I' * len(s)}\n"
+                      for i, s in enumerate(seqs))
+    return path
+
+
+def p19_inputs(workdir: str, seed: int, dev, gap_state: dict, genome_size: int,
+               coverage: int) -> dict:
+    """Phase 19's inputs, written before phase 14: (b)'s IonTorrent reads
+    (the gap set's raw pairs with homopolymer errors) and its mate pairs over
+    the gap genome, the gap set's FASTQ (phase 8's) for (b) and (c), and what
+    the card's process needs to make (a)'s isolate from the seed."""
+    from spades_tpu_torch.tools import synthetic
+
+    d = os.path.join(workdir, "p19_inputs")
+    os.makedirs(d)
+    files, runs_changed = {}, []
+    for mate in (1, 2):
+        reads, n = homopolymer_errors(gap_state[f"r{mate}"], HOMOPOLYMER_RATE, seed + 30 + mate)
+        files[f"ion_{mate}"] = write_reads(os.path.join(d, f"ion_{mate}.fq"), reads, mate,
+                                            "ion")
+        runs_changed.append(n)
+    m1, m2 = synthetic.make_mate_pairs(gap_state["genome"], GAP_MP_COVERAGE, 150,
+                                       ISOLATE_MP["error_rate"], seed + 33,
+                                       *ISOLATE_MP["insert"])
+    for mate, r in ((1, m1), (2, m2)):
+        files[f"mp_{mate}"] = os.path.join(d, f"mp_{mate}.fq")
+        synthetic.write_fastq(files[f"mp_{mate}"], r, mate, prefix="mp")
+    files["pe_1"], files["pe_2"] = gap_state["cli_fastq"]
+    return {"device": dev.type, "seed": seed, "genome_size": genome_size,
+            "coverage": coverage, "files": files, "k": gap_state["k"],
+            "homopolymer_runs_changed": runs_changed, "gap_mate_pairs": int(m1.shape[0])}
+
+
+def p19_cli_runs(workdir: str, files: dict, where):
+    """(b)'s two CLI runs on `where`, one after the other, each in a process
+    of its own with two host threads: (name, record)."""
+    k = ["-k", ",".join(map(str, P19_K))]
+    cli = (("cli_iontorrent", ["-1", files["ion_1"], "-2", files["ion_2"], "--iontorrent",
+                               *k]),
+           ("cli_mate_pairs", ["-1", files["pe_1"], "-2", files["pe_2"], "--mp-1",
+                               files["mp_1"], "--mp-2", files["mp_2"], "--cov-cutoff", "2", *k]))
+    for name, args in cli:
+        out, wall_s, launches, log_text = run_cli(where, workdir, name, args, threads=2)
+        yield name, {"out": out, "wall_s": wall_s, "launches": launches,
+                     "residue_pass": residue_lines(log_text)}
+
+
+def mate_pairs_cov_cutoff(dev, workdir: str, inp: dict, k_list=P19_K, rl: int = 150):
+    """(a): phase 3's isolate (FR pairs) and a mate-pair library of the same
+    genome through `run_assembly(k_list, paired_libs=[PE, MP], min_count=2)`:
+    the two-pass structure count at every K after the first, the mate pairs
+    through PairInfoCount and DistanceEstimation to the scaffold graph, the
+    contigs laid onto the genome, the scaffolds' N50 at least the contigs'."""
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.alignment import mapper as MR
+    from spades_tpu_torch.graph import simplify as SIMP
+    from spades_tpu_torch.io.libraries import SequencingLibrary
+    from spades_tpu_torch.ops import cuda_kernels as CK
+    from spades_tpu_torch.pipeline import spades_stages as S
+    from spades_tpu_torch.pipeline import stages as ST
+    from spades_tpu_torch.pipeline.run import run_assembly
+    from spades_tpu_torch.tools import synthetic
+
+    wall = {}
+    t0 = time.perf_counter()
+    genome, r1, r2 = synthetic.make_e2e_dataset(inp["genome_size"], inp["coverage"], rl,
+                                                0.003, inp["seed"])
+    m1, m2 = synthetic.make_mate_pairs(genome, ISOLATE_MP["coverage"], rl,
+                                       ISOLATE_MP["error_rate"], inp["seed"] + 31,
+                                       *ISOLATE_MP["insert"])
+    lefts, rights, mp_l, mp_r = (read_strings(r) for r in (r1, r2, m1, m2))
+    libs = [SequencingLibrary(type="paired-end", left=lefts, right=rights),
+            SequencingLibrary(type="mate-pairs", left=mp_l, right=mp_r)]
+    wall["make_data_s"] = time.perf_counter() - t0
+    for trail in (ST.STAGE_TIMES, S.CONSTRUCT_PHASES, S.GAP_CLOSER_STATS, S.RR_STATS,
+                  MR.RESIDUE_STATS):
+        trail.clear()
+    SIMP.ENGINE_RUNS.update(native=0, numpy=0)
+    # -- the path: launch counts from 0, read right after ---------------------
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    CK.canonical_window_keys.launches = 0
+    out = os.path.join(workdir, "mate_pairs")
+    t0 = time.perf_counter()
+    res = run_assembly(lefts + rights + mp_l + mp_r, list(k_list), out, paired_libs=libs,
+                       read_length=rl, min_count=2, device=dev, checkpoints="none")
+    sync(dev)
+    wall["run_assembly_s"] = time.perf_counter() - t0
+    launches = CK.canonical_window_keys.launches
+    peak_gib = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                else None)
+
+    check(launches > 0 or dev.type == "cpu", "(a): the canonical-windows kernel was not launched")
+    two_pass = [k for k, tm in S.CONSTRUCT_PHASES if "extra_count_s" in tm]
+    check(two_pass == list(k_list[1:]),
+          f"(a): the two-pass structure count ran at K = {two_pass}, not {list(k_list[1:])}")
+    pic = [st for _k, s, st in S.RR_STATS if s == "pair_info_count"]
+    check([st["lib_type"] for st in pic] == ["paired-end", "mate-pairs"],
+          f"(a): PairInfoCount mapped {[st['lib_type'] for st in pic]}")
+    mp_median = pic[1]["is_median"]
+    check(abs(mp_median - ISOLATE_MP["insert"][0]) <= 150,
+          f"(a): the mate pairs' insert-size median {mp_median}, not within 150 of "
+          f"{ISOLATE_MP['insert'][0]}")
+    [de] = [st for _k, s, st in S.RR_STATS if s == "distance_estimation"]
+    check(de["mp_entries"] > 0, "(a): the mate-pair library left no clustered entry")
+    [rr] = [st for _k, s, st in S.RR_STATS if s == "repeat_resolving"]
+    check(rr["scaffold_graph_links"] is not None,
+          "(a): repeat resolution built no mate-pair scaffold graph")
+    contigs, scaffolds = assembly_stats(res.contigs), assembly_stats(res.scaffolds)
+    check(scaffolds["n50"] >= contigs["n50"],
+          f"(a): the scaffolds' N50 {scaffolds['n50']} is below the contigs' {contigs['n50']}")
+    t0 = time.perf_counter()
+    n_long, placed = lay_onto_genome("contigs", [(c.name, c.seq) for c in res.contigs],
+                                     genome, np.random.default_rng(inp["seed"]))
+    wall["placement_s"] = time.perf_counter() - t0
+    check(n_long > 0, "(a): no contig of 1 kb or more")
+    return {"dataset": {"genome_nt": inp["genome_size"], "coverage": inp["coverage"],
+                        "pairs": int(r1.shape[0]), "mate_pairs": int(m1.shape[0]),
+                        "mate_pair_library": dict(ISOLATE_MP, orientation="rf"),
+                        "seed": inp["seed"]},
+            "k_list": list(k_list), "min_count": 2, "wall_s": wall,
+            "stage_times": {f"k={k} {s}": t for k, s, t in ST.STAGE_TIMES},
+            "construction": {f"k={k}": tm for k, tm in S.CONSTRUCT_PHASES},
+            "repeat_resolution": [[k, s, {kk: v for kk, v in st.items()
+                                          if kk != "index_timings"}]
+                                  for k, s, st in S.RR_STATS],
+            "residue_pass": list(MR.RESIDUE_STATS),
+            "simplify_engine_runs": dict(SIMP.ENGINE_RUNS),
+            "launches": launches, "peak_device_gib": peak_gib,
+            "contig_stats": contigs, "scaffold_stats": scaffolds,
+            "contigs_1kb": n_long, "contigs_check": placed}
+
+
+def after_simplification(reads, k: int, out: str, dev, rl: int = 150):
+    """The graph after Simplification at `k` and its kmer-mapper, from
+    `run_assembly([k])` of the FR pairs `reads` (lefts + rights) on `dev`.
+    (A checkpoint would not do: a kmer-mapper loaded from one counts no
+    rows, `KmerMapper.size`, so no mapping pass would apply it.)"""
+    import copy
+
+    n = len(reads) // 2
+    got = {}
+
+    def keep(stage, ctx):
+        if stage.id == "simplification":
+            got["graph"], got["kmer_mapper"] = copy.deepcopy((ctx.graph, ctx.kmer_mapper))
+
+    from spades_tpu_torch.pipeline.run import run_assembly
+
+    with after_every_stage(keep):
+        run_assembly(reads, [k], out, paired_libs=[(reads[:n], reads[n:])], read_length=rl,
+                     disable_rr=True, device=dev, checkpoints="none")
+    return got["graph"], got["kmer_mapper"]
+
+
+def residue_and_string_paths(dev, workdir: str, inp: dict, rl: int = 150):
+    """(c): the gap set's graph after Simplification at K = 55 and its
+    kmer-mapper (`run_assembly([55])` on the card), then on the card and on
+    the port's CPU path: `MappingEngine.map_store`
+    with the kmer-mapper over the gap set's reads and reads of removed bulge
+    arms (the kmer-mapper's source k-mers), so that at least 1 % stay
+    unmapped on the device and the host residue pass must run and recover
+    reads; and `correct_mismatches(g, reads)` (the string path, mapping on
+    the device) on that graph with substitutions planted into it.  Returns
+    (record, launches of each, shapes)."""
+    import copy
+
+    import numpy as np
+
+    from spades_tpu_torch.alignment import mapper as MR
+    from spades_tpu_torch.alignment.mismatch import correct_mismatches
+    from spades_tpu_torch.core import kmers as K
+    from spades_tpu_torch.core.reads import ReadStore
+    from spades_tpu_torch.graph.serialize import save_kmer_mapper
+    from spades_tpu_torch.io.fastx import read_fastx
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    k = inp["k"]
+    wall = {}
+    reads = [r.seq for m in (1, 2) for r in read_fastx(inp["files"][f"pe_{m}"])]
+    t0 = time.perf_counter()
+    graph, km = after_simplification(reads, k, os.path.join(workdir, "gap_graph"), dev, rl)
+    sync(dev)
+    wall["assembly_s"] = time.perf_counter() - t0
+    check(km.size > 0, "(c): Simplification left an empty kmer-mapper")
+    km_path = os.path.join(workdir, "kmer_mapper.npz")
+    save_kmer_mapper(km_path, km)
+    src = np.load(km_path)["src"]         # the removed arms' k-mers
+    rng = np.random.default_rng(inp["seed"] + 34)
+    arms = src[np.sort(rng.choice(src.shape[0], min(ARM_READS, src.shape[0]), replace=False))]
+    arm_reads = read_strings(K.unpack(arms, k))
+    store = ReadStore.build(reads + arm_reads)
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    launches, got = {}, {}
+    for where in (dev, "cpu"):
+        key = "card" if where is dev else "cpu"
+        MR.RESIDUE_STATS.clear()
+        CK.canonical_window_keys.launches = 0
+        t0 = time.perf_counter()
+        g, km_ = copy.deepcopy((graph, km))
+        mapped = MR.MappingEngine(g, device=where).map_store(store, kmer_mapper=km_,
+                                                             force_device=True)
+        sync(dev)
+        wall[f"map_store_{key}_s"] = time.perf_counter() - t0
+        got[key] = (mapped, list(MR.RESIDUE_STATS))
+        if where is dev:
+            launches["residue_pass"] = CK.canonical_window_keys.launches
+    check(all(np.array_equal(a, b) for a, b in zip(got["card"][0], got["cpu"][0])),
+          "(c): the card's and the CPU's map_store with the kmer-mapper differ")
+    check(got["card"][1] == got["cpu"][1],
+          f"(c): residue passes {got['card'][1]} on the card, {got['cpu'][1]} on the CPU")
+    [residue] = got["card"][1]
+    check(residue["device"] and residue["unmapped"] >= store.n // 100,
+          f"(c): {residue['unmapped']} of {store.n} reads unmapped on the device, under 1 %")
+    check(residue["rerun"] == residue["unmapped"] and residue["recovered"] > 0,
+          f"(c): the residue pass re-ran {residue['rerun']} reads and recovered "
+          f"{residue['recovered']}")
+
+    # -- the string path, with substitutions planted inside long edges --------
+    g0 = graph
+    ids = [int(e) for e in g0.canonical_edge_ids() if g0.e_len[e] >= 1000]
+    check(bool(ids), "(c): the gap graph has no edge of 1 kb or more")
+    planted = {}            # pool position -> (its conjugate's position, the right base)
+    for e in rng.choice(ids, PLANTED_MISMATCHES):
+        p = int(rng.integers(k, g0.e_len[e] - k))
+        planted[int(g0.e_off[e] + p)] = (int(g0.e_off[g0.e_conj[e]] + g0.e_len[e] - 1 - p),
+                                         int(g0.seq_pool[g0.e_off[e] + p]))
+    fixed = {}
+    for where in (dev, "cpu"):
+        key = "card" if where is dev else "cpu"
+        g = copy.deepcopy(graph)
+        for pos, (conj_pos, base) in planted.items():
+            g.seq_pool[pos] = (base + 1) & 3
+            g.seq_pool[conj_pos] = 3 - g.seq_pool[pos]
+        CK.canonical_window_keys.launches = 0
+        t0 = time.perf_counter()
+        with environment({"SPADES_DEVICE_MAP_READS": "1"}):    # map on the device
+            n = correct_mismatches(g, reads, device=where)
+        sync(dev)
+        wall[f"correct_mismatches_{key}_s"] = time.perf_counter() - t0
+        fixed[key] = (n, g)
+        if where is dev:
+            launches["mismatch_strings"] = CK.canonical_window_keys.launches
+    CK.canonical_window_keys.launch_shapes = None
+    (n_card, g_card), (n_cpu, g_cpu) = fixed["card"], fixed["cpu"]
+    check(n_card == n_cpu and np.array_equal(g_card.seq_pool, g_cpu.seq_pool),
+          f"(c): the string path fixed {n_card} bases on the card and {n_cpu} on the CPU, "
+          f"or the graphs differ")
+    restored = sum(int(g_card.seq_pool[p]) == b for p, (_c, b) in planted.items())
+    check(restored == len(planted),
+          f"(c): the string path restored {restored} of {len(planted)} planted bases")
+    for name, n in launches.items():
+        check(n > 0 or dev.type == "cpu", f"(c): {name} launched no kernel")
+    return {"reads": store.n, "arm_reads": len(arm_reads), "kmer_mapper_rows": int(src.shape[0]),
+            "residue_pass": residue, "planted": len(planted), "fixed": n_card,
+            "restored": restored, "wall_s": wall}, launches, shapes
+
+
+def p19_card(workdir: str, inp: dict) -> int:
+    """Phase 19's card process (`--runs p19_card`), started before phase 14:
+    (a), (b)'s CLI runs on the card, then (c)."""
+    import torch
+
+    from spades_tpu_torch.ops import cuda_kernels as CK
+
+    torch.set_num_threads(2)          # beside phase 14 and the workers
+    dev = torch.device(inp["device"])
+    rec = {"card": nvidia_smi_line() if dev.type == "cuda" else "cpu"}
+    shapes = CK.canonical_window_keys.launch_shapes = collections.Counter()
+    t0 = time.perf_counter()
+    rec["mate_pairs_cov_cutoff"] = mate_pairs_cov_cutoff(dev, workdir, inp)
+    rec["mate_pairs_cov_cutoff"]["phase_wall_s"] = time.perf_counter() - t0
+    CK.canonical_window_keys.launch_shapes = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["cli"] = dict(p19_cli_runs(workdir, inp["files"], dev))
+    t0 = time.perf_counter()
+    rec["device_paths"], rec["device_path_launches"], shapes_c = residue_and_string_paths(
+        dev, workdir, inp)
+    rec["device_paths"]["phase_wall_s"] = time.perf_counter() - t0
+    shapes.update(shapes_c)
+    rec["shapes"] = [[*key, n] for key, n in shapes.items()]
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def p19_worker(workdir: str, inp: dict) -> int:
+    """Phase 19's CPU worker (`--runs p19`): (b)'s CLI runs on the CPU."""
+    import torch
+
+    runs = dict(p19_cli_runs(workdir, inp["files"], torch.device("cpu")))
+    with open(os.path.join(workdir, "runs.json"), "w") as fh:
+        json.dump(runs, fh)
+    return 0
+
+
+def start_p19(workdir: str, inp: dict, side: str):
+    """Start phase 19's card process (`side` "card": on `inp["device"]`) or
+    its CPU worker (`side` "cpu")."""
+    out = os.path.join(workdir, f"{side}_side_p19")
+    os.makedirs(out)
+    log = open(os.path.join(workdir, f"p19_{side}.log"), "w")
+    env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": ""} if side == "cpu" else {}))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-worker", out, "--runs",
+         "p19" if side == "cpu" else "p19_card", "--sizes", json.dumps(inp)],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT, env=env)
+    return proc, out, log
+
+
+def phase_user_paths(dev, workdir: str, inp: dict, card, worker):
+    """Phase 19: wait for its card process and its CPU worker ((a) and (c)
+    were checked in the card's process); every file of (b)'s CLI runs must
+    be equal on the card and the CPU, and their logs must show the path."""
+    import re
+
+    rec, _card_dir, waited_card = _wait("phase 19's card", card, workdir)
+    cpu, _cpu_dir, waited_cpu = _wait("phase 19's CPU", worker, workdir)
+    launches = {"mate_pairs_cov_cutoff": rec["mate_pairs_cov_cutoff"]["launches"],
+                **{name: r["launches"] for name, r in rec["cli"].items()},
+                **rec.pop("device_path_launches")}
+    for name, n in launches.items():
+        check(n > 0 or dev.type == "cpu", f"phase 19: {name} launched no kernel")
+    skip = NOT_COMPARED | {"checkpoint.json"}
+    for name, r in rec["cli"].items():
+        a, b = r["out"], cpu[name]["out"]
+        names = {n for n in files_under(a) if os.path.basename(n) not in skip}
+        other = {n for n in files_under(b) if os.path.basename(n) not in skip}
+        check(names == other, f"{name}: the card and the CPU wrote different files: "
+                              f"{sorted(names ^ other)[:10]}")
+        for rel in sorted(names):
+            check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+                  f"{name}: the card's and the CPU's {rel} differ")
+        check(r["residue_pass"] == cpu[name]["residue_pass"],
+              f"{name}: the card's and the CPU's mapping passes differ")
+        r.update(files=len(names), cpu_s=cpu[name]["wall_s"])
+        with open(os.path.join(a, "spades.log")) as fh:
+            log_text = fh.read()
+        if name == "cli_iontorrent":
+            changed = re.findall(r"error correction: (\d+)/(\d+) reads changed", log_text)
+            check(len(changed) == 1 and int(changed[0][0]) > 0,
+                  "cli_iontorrent: IonHammer changed no read")
+            r["reads_changed"] = [int(x) for x in changed[0]]
+        else:
+            two_pass = [int(k) for k in re.findall(r"k=(\d+): \d+ unique \(k\+1\)-mers.*"
+                                                   r"'extra_count_s'", log_text)]
+            check(two_pass == list(P19_K[1:]),
+                  f"cli_mate_pairs: the two-pass structure count ran at K = {two_pass}")
+            check("mate-pair scaffold graph:" in log_text,
+                  "cli_mate_pairs: no mate-pair scaffold graph was built")
+    shapes = collections.Counter()
+    for row in rec.pop("shapes"):
+        shapes[tuple(row[:4])] += row[4]
+    return ({"phase": "user_paths", "waited_card_s": waited_card, "waited_cpu_s": waited_cpu,
+             "inputs": {kk: v for kk, v in inp.items() if kk != "files"}, **rec},
+            launches, shapes)
+
+
+def user_paths_alone(dev, seed: int, genome_size: int = 5_000_000, coverage: int = 15,
+                     gap_genome: int = 300_000, gap_count: int = 30) -> dict:
+    """Phase 19 alone (`--phase19`, a rehearsal): the gap set made as phase 7
+    makes it and written as phase 8 writes it, then phase 19's two
+    processes; returns its record with the launches by path."""
+    from spades_tpu_torch.tools import synthetic
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="spades_torch_p19_")
+    card = worker = None
+    try:
+        genome, r1, r2, _gaps, c1, c2 = synthetic.make_gapped_dataset(
+            gap_genome, GAP_COVERAGE, 150, 0.003, seed + 1, gap_count, truth=True)
+        paths = [os.path.join(workdir, f"cli_{m}.fq") for m in (1, 2)]
+        for i, (r, c) in enumerate(((r1, c1), (r2, c2))):
+            synthetic.write_fastq(paths[i], r, i + 1,
+                                  synthetic.error_qualities(r, c, seed + 21 + i))
+        gap_state = {"r1": r1, "r2": r2, "genome": genome, "k": 55, "cli_fastq": paths}
+        inp = p19_inputs(workdir, seed, dev, gap_state, genome_size, coverage)
+        card, worker = start_p19(workdir, inp, "card"), start_p19(workdir, inp, "cpu")
+        rec, launches, _shapes = phase_user_paths(dev, workdir, inp, card, worker)
+    finally:
+        for w in (card, worker):
+            if w is not None:
+                if w[0].poll() is None:
+                    w[0].kill()
+                    w[0].wait()
+                w[2].close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return dict(rec, launches_by_path=launches, total_s=time.perf_counter() - t0)
+
+
 def phase_observed_shapes(dev, observed, held, max_groups: int = 64) -> dict:
     """`observed` counts launches by (R, L, k, strand).  For every (L, k,
     strand) among them, its largest R is checked against the plain version
@@ -3687,7 +4173,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
         gap_count: int = 30, total_tolerance: float = 0.02, meta_sizes=META_SIZES,
         small_sizes=None, rna_sizes=None):
-    """All phases on `dev` (16 after 15, 17 after 16, 18 after 17, 13 last);
+    """All phases on `dev` (16 after 15, 17 after 16, 18 after 17, 19 after 18,
+    13 last);
     returns the kernels line.
     Raises on any failure.
     total_tolerance: how far the contigs' total may be from the genome size
@@ -3708,7 +4195,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     observed = collections.Counter()
     launches = {}
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
-    worker = worker7 = worker16 = worker17 = card17 = cli7 = sharded = None
+    worker = worker7 = worker16 = worker17 = card17 = cli7 = sharded = card19 = worker19 = None
     try:
         # the CPU side of phase 15 (about 800 s of CPU work) runs from here
         # on, in a process of its own
@@ -3788,6 +4275,10 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         cli7 = start_slice7_cli(card7, files7, dev)
         # phase 18's ranks go on during phase 14 too, in processes of their own
         sharded = start_sharded(workdir, isolate, gap_state, dev)
+        # and phase 19's card process and CPU worker
+        inp19 = p19_inputs(workdir, seed, dev, gap_state, genome_size, coverage)
+        card19 = start_p19(workdir, inp19, "card")
+        worker19 = start_p19(workdir, inp19, "cpu")
         rec, counts, shapes = phase_rna(dev, workdir, seed, rna_sizes)
         launches.update(counts)
         observed.update(shapes)
@@ -3815,12 +4306,17 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
+        rec, counts, shapes = phase_user_paths(dev, workdir, inp19, card19, worker19)
+        launches.update(counts)
+        observed.update(shapes)
+        rec["total_s"] = time.perf_counter() - t0
+        emit(rec)
     finally:
         CK.canonical_window_keys.launch_shapes = None
         if cli7 is not None:          # its processes end before the script does
             with contextlib.suppress(BaseException):
                 cli7()
-        for w in (worker, worker7, worker16, worker17, card17, sharded):
+        for w in (worker, worker7, worker16, worker17, card17, sharded, card19, worker19):
             if w is not None:
                 if w[0].poll() is None:
                     w[0].kill()
@@ -3840,12 +4336,14 @@ def main(argv=None) -> int:
     ap.add_argument("--sizes", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--gfa", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--runs", default="modes", help=argparse.SUPPRESS)
+    ap.add_argument("--phase19", action="store_true",
+                    help="run phase 19 alone at full size (a rehearsal; prints its record)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "spades_tpu_torch")):
         print("chip_smoke: the spades_tpu_torch package is not beside this script",
               file=sys.stderr)
         return 2
-    if args.cpu_worker:          # the CPU side of phases 9 to 11, 15 or 16, started by `run`
+    if args.cpu_worker:          # a process of phases 9-11 or 15-19, started by `run`
         sys.path.insert(0, HERE)
         if args.runs == "slice7":
             return slice7_worker(args.cpu_worker, args.seed, json.loads(args.sizes))
@@ -3857,6 +4355,9 @@ def main(argv=None) -> int:
         if args.runs in ("tools17", "tools17_card"):
             work = tools17_worker if args.runs == "tools17" else tools17_card
             return work(args.cpu_worker, json.loads(args.sizes))
+        if args.runs in ("p19", "p19_card"):
+            work = p19_worker if args.runs == "p19" else p19_card
+            return work(args.cpu_worker, json.loads(args.sizes))
         return cpu_worker(args.cpu_worker, args.seed, json.loads(args.sizes), args.gfa or None)
     import torch
 
@@ -3865,6 +4366,10 @@ def main(argv=None) -> int:
         return 3
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
+    if args.phase19:
+        emit(user_paths_alone(dev, args.seed))
+        print(nvidia_smi_line(), flush=True)
+        return 0
     # a bacterial isolate: 5 Mb at 15x (cut from 40x for the time limit once
     # phases 14-15 came), and the first 20,000 pairs for the
     # comparison with the CPU path

@@ -36,6 +36,12 @@ from ..ops.extension import canonicalize
 
 log = logging.getLogger("spades_tpu_torch.mapper")
 
+# one dict per `MappingEngine.map_store` call given a non-empty kmer-mapper:
+# its reads, whether it mapped on the device, the reads left unmapped there,
+# and how many of those the host residue pass re-ran and recovered
+# (instrumentation, as `pipeline.spades_stages.GAP_CLOSER_STATS`)
+RESIDUE_STATS: list[dict] = []
+
 
 @dataclass
 class EdgeIndex:
@@ -205,7 +211,11 @@ class MappingEngine:
             start[c0 : c0 + ch.n] = s[: ch.n]
             votes[c0 : c0 + ch.n] = v[: ch.n]
             c0 += ch.n
-        if use_device and kmer_mapper is not None and kmer_mapper.size > 0:
+        if kmer_mapper is None or kmer_mapper.size == 0:
+            return edge, start, votes
+        stats = {"reads": int(store.n), "device": bool(use_device),
+                 "unmapped": int((edge < 0).sum()), "rerun": 0, "recovered": 0}
+        if use_device:
             miss = np.flatnonzero(edge < 0)
             # The projection residue only recovers reads whose EVERY anchor
             # was glued away.  When the residue is a sliver (<1%) on a big
@@ -223,6 +233,13 @@ class MappingEngine:
                 for i, m in zip(miss, sub):
                     if m is not None:
                         edge[i], start[i], votes[i] = m.edge, m.start_offset, m.n_hits
+                stats["rerun"] = int(miss.size)
+                stats["recovered"] = int(sum(m is not None for m in sub))
+        RESIDUE_STATS.append(stats)
+        log.info("map_store: %d reads on the %s, %d unmapped there; kmer-mapper residue "
+                 "pass re-ran %d, recovered %d", stats["reads"],
+                 "device" if use_device else "host", stats["unmapped"], stats["rerun"],
+                 stats["recovered"])
         return edge, start, votes
 
     def map_sequences(self, seqs, chunk_reads: int = 262144):

@@ -58,6 +58,14 @@ def base_at(words: np.ndarray, j: int, k: int) -> np.ndarray:
     return (words[..., w] >> np.uint32(30 - 2 * jj)) & np.uint32(3)
 
 
+def first_base(words: np.ndarray, k: int) -> np.ndarray:
+    return base_at(words, 0, k)
+
+
+def last_base(words: np.ndarray, k: int) -> np.ndarray:
+    return base_at(words, k - 1, k)
+
+
 def unpack(words: np.ndarray, k: int) -> np.ndarray:
     """Packed (N, W) -> (N, k) uint8 base codes."""
     words = np.asarray(words, dtype=np.uint32)
@@ -111,6 +119,15 @@ def revcomp_words(words: np.ndarray, k: int) -> np.ndarray:
             out.append(hi | lo)
         rev = out
     return np.stack(rev, axis=-1).astype(np.uint32)
+
+
+def kmer_to_int(words: np.ndarray, k: int) -> np.ndarray:
+    """Packed k-mer -> Python-int array (arbitrary precision), for tests."""
+    words = np.asarray(words, dtype=np.uint64)
+    val = np.zeros(words.shape[:-1], dtype=object)
+    for w in range(words.shape[-1]):
+        val = val * (1 << 32) + words[..., w].astype(object)
+    return val >> (32 * words.shape[-1] - 2 * k)
 
 
 def words_to_keys(words: np.ndarray) -> np.ndarray:

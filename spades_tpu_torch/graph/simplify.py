@@ -33,6 +33,11 @@ from .compress import compress
 from .coverage_model import GenomicInfo
 from .graph import CondensedGraph
 
+# how often `simplify` ran its schedule on each engine: the native library,
+# or the numpy loop (taken with relative-coverage flanking, as in meta mode,
+# or without the library); instrumentation for the smoke run
+ENGINE_RUNS = {"native": 0, "numpy": 0}
+
 
 @dataclass
 class SimplifyConfig:
@@ -516,8 +521,10 @@ def simplify(
             g, cfg, auto_cb, ec_len, tip_len_1, tip_len_2, kmer_mapper, stats
         )
         if gn is not None:
+            ENGINE_RUNS["native"] += 1
             return _simplify_tail(gn, cfg, stats, kmer_mapper)
 
+    ENGINE_RUNS["numpy"] += 1
     for it in range(cfg.cycle_iter_count):
         stats.iterations = it + 1
         # iterative coverage threshold ramp (icb auto semantics)

@@ -516,6 +516,24 @@ def _extend_step(
     return False  # ambiguous — stop
 
 
+def _default_choosers(pi: PairedIndex, long_reads) -> list:
+    """One PE chooser over `pi`, with the long-read chooser as tie-breaker."""
+    choosers: list = [PEChooser(pi)]
+    if long_reads is not None:
+        choosers.append(LongReadChooser(long_reads))
+    return choosers
+
+
+def extend_path_forward(
+    g: CondensedGraph, pi: PairedIndex, path: Path, cfg: PEConfig, long_reads=None
+) -> bool:
+    """Try one forward extension step; returns True if extended.
+
+    Back-compat wrapper over the composite chain: one PE chooser over the
+    merged index, with the long-read chooser as tie-breaker."""
+    return _extend_step(g, path, cfg, _default_choosers(pi, long_reads))
+
+
 def resolve_repeats(
     g: CondensedGraph, pi: PairedIndex, cfg: PEConfig, long_reads=None,
     choosers: list | None = None,
@@ -525,9 +543,7 @@ def resolve_repeats(
     choosers: explicit composite chooser chain (make_chooser_chain); when
     None, one PE chooser over `pi` plus the long-read tie-breaker."""
     if choosers is None:
-        choosers = [PEChooser(pi)]
-        if long_reads is not None:
-            choosers.append(LongReadChooser(long_reads))
+        choosers = _default_choosers(pi, long_reads)
     ids = g.canonical_edge_ids()
     order = sorted(ids, key=lambda e: (-int(g.e_len[e]), int(e)))
     used: set[int] = set()

@@ -46,6 +46,8 @@ import numpy as np
 
 from .. import __version__, resolve_device
 
+MODES = ("isolate", "multicell", "meta", "rna", "plasmid", "metaplasmid", "sc", "metaviral", "rnaviral", "corona", "bio", "sewage")
+
 
 def test_dataset_dir() -> str:
     """SPAdes' bundled E. coli 1K test set (`--test`), in a SPAdes source
@@ -137,8 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
     out.add_argument("-o", dest="output_dir", help="output directory (required unless --test)")
 
     modes = p.add_argument_group("modes")
-    for m in ("meta", "rna", "plasmid", "isolate", "sc", "metaviral", "rnaviral", "corona", "bio", "sewage", "metaplasmid"):
-        modes.add_argument(f"--{m}", action="store_true", help=f"{m} mode")
+    for m in MODES:
+        if m != "multicell":          # the default, with no flag of its own
+            modes.add_argument(f"--{m}", action="store_true", help=f"{m} mode")
     modes.add_argument("--careful", action="store_true", help="careful mode (mismatch correction)")
     modes.add_argument("--ss", choices=("fr", "rf"), default=None,
                        help="strand-specific RNA protocol orientation (rna mode)")

@@ -1,7 +1,7 @@
-"""Synthetic data: a random genome with planted repeats and FR pairs, a mock
-metagenomic community, a chromosome with circular plasmids, noisy long
-reads, barcoded linked reads, and lineage barcodes with a wastewater-like
-mixture of lineages.
+"""Synthetic data: a random genome with planted repeats and FR pairs, RF
+mate pairs, a mock metagenomic community, a chromosome with circular
+plasmids, noisy long reads, barcoded linked reads, and lineage barcodes with
+a wastewater-like mixture of lineages.
 
 `make_e2e_dataset` is a copy of the JAX package's benchmark generator
 (`bench.py:make_e2e_dataset`) so that the port's smoke run makes the same
@@ -130,6 +130,17 @@ def _fr_pairs(rng, genome: np.ndarray, cov: float, rl: int, err: float, insert_m
         em = rng.random(r.shape) < err
         r[em] = (r[em] + rng.integers(1, 4, int(em.sum()))) & 3
     return r1, r2
+
+
+def make_mate_pairs(genome: np.ndarray, cov: float, rl: int, err: float, seed: int,
+                    insert_mean: int = 3000, insert_sd: int = 300):
+    """A mate-pair library of `genome` (uint8 codes) in SPAdes' default RF
+    orientation: FR pairs of the given insert with both mates reverse
+    complemented, `cov` times the genome, substitutions at rate `err`.
+    Returns (r1, r2) as (n, rl) uint8 codes."""
+    r1, r2 = _fr_pairs(np.random.default_rng(seed), genome, cov, rl, err, insert_mean,
+                       insert_sd)
+    return (np.ascontiguousarray((3 - r1)[:, ::-1]), np.ascontiguousarray((3 - r2)[:, ::-1]))
 
 
 def make_community(sizes, coverages, rl: int, err: float, seed: int, shared: int = 5000,

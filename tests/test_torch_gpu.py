@@ -517,3 +517,167 @@ def test_distance_clusters_on_card_match_cpu(cuda, tmp_path, backend):
         assert np.array_equal(res.e1, ref.e1) and np.array_equal(res.e2, ref.e2)
         np.testing.assert_allclose(res.dist, ref.dist, rtol=1e-5)
         np.testing.assert_allclose(res.weight, ref.weight, rtol=1e-5)
+
+
+# -- the user paths of chip_smoke.py phase 19, at small size ---------------------
+
+NOT_COMPARED = {"params.txt", "run_spades.sh", "spades.log", "checkpoint.json"}
+SMALL_PATHS = (("SPADES_HOST_COUNT_WINDOWS", "1"), ("SPADES_DEVICE_MAP_READS", "1"),
+               ("SPADES_DEVICE_INDEX_POOL", "1"), ("SPADES_MAP_SUBCHUNK", "4096"))
+
+
+def _assert_same_dirs(a, b):
+    """Every file the two runs wrote is equal, but the logs and time stamps."""
+    import filecmp
+    import os
+
+    def names(root):
+        return {os.path.relpath(os.path.join(d, n), root) for d, _dirs, files in os.walk(root)
+                for n in files if n not in NOT_COMPARED}
+
+    assert names(a) == names(b)
+    for rel in names(a):
+        assert filecmp.cmp(os.path.join(a, rel), os.path.join(b, rel), shallow=False), rel
+    return names(a)
+
+
+def _community(seed, G=30_000, cov=30):
+    from spades_tpu_torch.tools import synthetic
+
+    genomes, r1, r2, _origin = synthetic.make_community([G], [cov], 150, 0.003, seed)
+    return genomes[0], r1, r2
+
+
+def test_iontorrent_cli_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
+    """`--iontorrent -k 21,33` on reads with homopolymer-length errors: the
+    corrected reads, contigs and every other file of the card's run equal
+    the CPU's, and the card's run launched the kernel."""
+    import chip_smoke
+    from spades_tpu_torch.pipeline import main as t_main
+
+    for name, value in SMALL_PATHS:
+        monkeypatch.setenv(name, value)
+    _genome, r1, r2 = _community(61)
+    paths = []
+    for mate, codes in ((1, r1), (2, r2)):
+        reads, changed = chip_smoke.homopolymer_errors(codes, 0.01, 62 + mate)
+        assert changed > 0
+        paths.append(chip_smoke.write_reads(str(tmp_path / f"ion_{mate}.fq"), reads, mate,
+                                             "ion"))
+    launches = {}
+    for dev in ("cuda", "cpu"):
+        CK.canonical_window_keys.launches = 0
+        assert t_main.main(["-1", paths[0], "-2", paths[1], "--iontorrent", "-k", "21,33",
+                            "-o", str(tmp_path / dev), "--device", dev]) == 0
+        launches[dev] = CK.canonical_window_keys.launches
+    assert launches["cuda"] > 0 and launches["cpu"] == 0
+    names = _assert_same_dirs(str(tmp_path / "cuda"), str(tmp_path / "cpu"))
+    assert {"corrected/lib1_1.cor.fasta", "contigs.fasta"} <= names
+
+
+def test_mate_pairs_with_a_coverage_cutoff_cuda_match_cpu(cuda, monkeypatch, tmp_path):
+    """A paired-end and an RF mate-pair library, `min_count=2` over K = 21,
+    33 (the two-pass structure count at 33): the card's files equal the
+    CPU's, and the mate pairs reach DistanceEstimation on both."""
+    from spades_tpu_torch.io.libraries import SequencingLibrary
+    from spades_tpu_torch.pipeline import spades_stages as S
+    from spades_tpu_torch.pipeline.run import run_assembly
+    from spades_tpu_torch.tools import synthetic
+
+    for name, value in SMALL_PATHS:
+        monkeypatch.setenv(name, value)
+    genome, r1, r2 = _community(63)
+    m1, m2 = synthetic.make_mate_pairs(genome, 8, 150, 0.003, 64)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pe_l, pe_r, mp_l, mp_r = ([acgt[row].tobytes().decode() for row in r]
+                              for r in (r1, r2, m1, m2))
+    trails = {}
+    for dev in ("cuda", "cpu"):
+        S.CONSTRUCT_PHASES.clear()
+        S.RR_STATS.clear()
+        libs = [SequencingLibrary(type="paired-end", left=pe_l, right=pe_r),
+                SequencingLibrary(type="mate-pairs", left=mp_l, right=mp_r)]
+        run_assembly(pe_l + pe_r + mp_l + mp_r, [21, 33], str(tmp_path / dev), paired_libs=libs,
+                     read_length=150, min_count=2, device=dev, checkpoints="none")
+        trails[dev] = ([k for k, tm in S.CONSTRUCT_PHASES if "extra_count_s" in tm],
+                       [(s, st.get("lib_type"), st.get("mp_entries")) for _k, s, st in S.RR_STATS])
+    assert trails["cuda"] == trails["cpu"] and trails["cuda"][0] == [33]
+    assert [row for row in trails["cuda"][1] if row[0] == "pair_info_count"] == [
+        ("pair_info_count", "paired-end", None), ("pair_info_count", "mate-pairs", None)]
+    [de] = [row for row in trails["cuda"][1] if row[0] == "distance_estimation"]
+    assert de[2] > 0
+    _assert_same_dirs(str(tmp_path / "cuda"), str(tmp_path / "cpu"))
+
+
+def _simplified(tmp_path, k=33):
+    """A small genome's raw reads (lefts + rights), and their graph after
+    Simplification at K = k with its kmer-mapper, from the CPU path."""
+    import chip_smoke
+
+    _genome, r1, r2 = _community(65)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    reads = [acgt[row].tobytes().decode() for r in (r1, r2) for row in r]
+    graph, km = chip_smoke.after_simplification(reads, k, str(tmp_path / "run"), "cpu")
+    return reads, graph, km
+
+
+def test_kmer_mapper_residue_pass_cuda_matches_cpu(cuda, tmp_path):
+    """`map_store` with the kmer-mapper, reads of removed bulge arms among a
+    small genome's: on the card and on the CPU the residue pass re-runs the reads
+    the device left unmapped (at least 1 %) and recovers some; the mappings
+    are equal."""
+    import copy
+
+    from spades_tpu_torch.alignment import mapper as MR
+    from spades_tpu_torch.graph.serialize import save_kmer_mapper
+
+    reads, graph, km = _simplified(tmp_path)
+    save_kmer_mapper(str(tmp_path / "km.npz"), km)
+    src = np.load(tmp_path / "km.npz")["src"]            # the removed arms' k-mers
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    arms = [acgt[row].tobytes().decode() for row in K.unpack(src[::3], 33)]
+    store = ReadStore.build(reads + arms)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        MR.RESIDUE_STATS.clear()
+        g, km_ = copy.deepcopy((graph, km))
+        got[dev] = (MR.MappingEngine(g, device=dev).map_store(store, kmer_mapper=km_,
+                                                              force_device=True),
+                    list(MR.RESIDUE_STATS))
+    for a, b in zip(got["cuda"][0], got["cpu"][0]):
+        assert np.array_equal(a, b)
+    assert got["cuda"][1] == got["cpu"][1]
+    [st] = got["cuda"][1]
+    assert st["device"] and st["unmapped"] >= store.n // 100
+    assert st["rerun"] == st["unmapped"] and st["recovered"] > 0
+
+
+def test_mismatch_string_path_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
+    """`correct_mismatches(g, reads)` (the string path, mapping on the device)
+    on a small genome's graph with planted substitutions: the fixed count and
+    the graph equal the CPU's, and every planted base is restored."""
+    import copy
+
+    from spades_tpu_torch.alignment.mismatch import correct_mismatches
+
+    reads, g0, _km = _simplified(tmp_path)
+    rng = np.random.default_rng(66)
+    planted = {}
+    for e in rng.choice([int(e) for e in g0.canonical_edge_ids() if g0.e_len[e] >= 500], 40):
+        p = int(rng.integers(33, g0.e_len[e] - 33))
+        planted[int(g0.e_off[e] + p)] = (int(g0.e_off[g0.e_conj[e]] + g0.e_len[e] - 1 - p),
+                                         int(g0.seq_pool[g0.e_off[e] + p]))
+    monkeypatch.setenv("SPADES_DEVICE_MAP_READS", "1")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = copy.deepcopy(g0)
+        for pos, (conj_pos, base) in planted.items():
+            g.seq_pool[pos] = (base + 1) & 3
+            g.seq_pool[conj_pos] = 3 - g.seq_pool[pos]
+        CK.canonical_window_keys.launches = 0
+        out[dev] = (correct_mismatches(g, reads, device=dev), g,
+                    CK.canonical_window_keys.launches)
+    assert out["cuda"][0] == out["cpu"][0] >= len(planted)
+    assert np.array_equal(out["cuda"][1].seq_pool, out["cpu"][1].seq_pool)
+    assert all(int(out["cuda"][1].seq_pool[p]) == b for p, (_c, b) in planted.items())
+    assert out["cuda"][2] > 0 and out["cpu"][2] == 0
