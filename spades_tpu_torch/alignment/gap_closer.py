@@ -16,13 +16,13 @@ lock).
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..core import dna
 from ..graph.graph import CondensedGraph
+from ..utils.timetracer import span
 from .mapper import EdgeIndex, build_edge_index, map_read_batch
 
 log = logging.getLogger("spades_tpu_torch.gap_closer")
@@ -219,30 +219,29 @@ def close_gaps(
         # this skips nearly all of the mapping work).
         # a qualifying mate's ON-EDGE windows all start within max_tip_scan
         # of its tip (see _collect_votes bounds), so T = scan + k covers them
-        t0 = time.perf_counter()
-        tipw = _tip_region_words(g, dead_end, dead_start,
-                                 cfg.max_tip_scan + g.k + 1, engine.device)
-        stats["prefilter_s"] += time.perf_counter() - t0
+        with span("gap_closer.prefilter", into=stats, key="prefilter_s"):
+            tipw = _tip_region_words(g, dead_end, dead_start,
+                                     cfg.max_tip_scan + g.k + 1, engine.device)
         if tipw.shape[0] == 0:
             return 0
         for st1, st2rc, _lib_type in paired_stores:
-            t0 = time.perf_counter()
-            h1 = hit_filter_store(st1, tipw, g.k, device=engine.device, group=engine.group)
-            h2 = hit_filter_store(st2rc, tipw, g.k, device=engine.device, group=engine.group)
-            cand = np.flatnonzero(h1 & h2)
-            stats["prefilter_s"] += time.perf_counter() - t0
+            with span("gap_closer.prefilter", into=stats, key="prefilter_s",
+                      pairs=int(st1.n)) as sp:
+                h1 = hit_filter_store(st1, tipw, g.k, device=engine.device, group=engine.group)
+                h2 = hit_filter_store(st2rc, tipw, g.k, device=engine.device, group=engine.group)
+                cand = np.flatnonzero(h1 & h2)
+                sp.set(candidates=int(cand.size))
             stats["candidates"] += int(cand.size)
             stats["pairs"] += int(st1.n)
             log.info("gap closer prefilter: %d/%d candidate pairs",
                      cand.size, st1.n)
             if cand.size == 0:
                 continue
-            t0 = time.perf_counter()
-            sub1 = subset_store(st1, cand)
-            sub2 = subset_store(st2rc, cand)
-            e1a, s1a, _ = engine.map_store(sub1, force_device=True)
-            e2a, s2a, _ = engine.map_store(sub2, force_device=True)
-            stats["map_s"] += time.perf_counter() - t0
+            with span("gap_closer.map", into=stats, key="map_s"):
+                sub1 = subset_store(st1, cand)
+                sub2 = subset_store(st2rc, cand)
+                e1a, s1a, _ = engine.map_store(sub1, force_device=True)
+                e2a, s2a, _ = engine.map_store(sub2, force_device=True)
             for pair, c in _collect_votes(
                 g, e1a, s1a, e2a, s2a, dead_end, dead_start, cfg
             ).items():
@@ -260,26 +259,25 @@ def close_gaps(
                 else dna.revcomp_codes(dna.encode(s))
                 for s in r2s
             ]
-            t0 = time.perf_counter()
-            if grp is not None:
-                from ..core.reads import ReadBatch
-                from ..parallel.sharded_mapping import map_reads_sharded
+            with span("gap_closer.map", into=stats, key="map_s"):
+                if grp is not None:
+                    from ..core.reads import ReadBatch
+                    from ..parallel.sharded_mapping import map_reads_sharded
 
-                e1a, s1a, _ = map_reads_sharded(index, g, ReadBatch.from_sequences(r1s),
-                                                device, group=grp)
-                e2a, s2a, _ = map_reads_sharded(index, g, ReadBatch.from_sequences(r2rc),
-                                                device, group=grp)
-                e1a, s1a = e1a[: len(r1s)].astype(np.int64), s1a[: len(r1s)].astype(np.int64)
-                e2a, s2a = e2a[: len(r2rc)].astype(np.int64), s2a[: len(r2rc)].astype(np.int64)
-            else:
-                m1 = map_read_batch(index, g, r1s, device=device)
-                # FR orientation: the right mate spells the reverse strand
-                m2 = map_read_batch(index, g, r2rc, device=device)
-                e1a = np.array([m.edge if m else -1 for m in m1], np.int64)
-                s1a = np.array([m.start_offset if m else 0 for m in m1], np.int64)
-                e2a = np.array([m.edge if m else -1 for m in m2], np.int64)
-                s2a = np.array([m.start_offset if m else 0 for m in m2], np.int64)
-            stats["map_s"] += time.perf_counter() - t0
+                    e1a, s1a, _ = map_reads_sharded(index, g, ReadBatch.from_sequences(r1s),
+                                                    device, group=grp)
+                    e2a, s2a, _ = map_reads_sharded(index, g, ReadBatch.from_sequences(r2rc),
+                                                    device, group=grp)
+                    e1a, s1a = e1a[: len(r1s)].astype(np.int64), s1a[: len(r1s)].astype(np.int64)
+                    e2a, s2a = e2a[: len(r2rc)].astype(np.int64), s2a[: len(r2rc)].astype(np.int64)
+                else:
+                    m1 = map_read_batch(index, g, r1s, device=device)
+                    # FR orientation: the right mate spells the reverse strand
+                    m2 = map_read_batch(index, g, r2rc, device=device)
+                    e1a = np.array([m.edge if m else -1 for m in m1], np.int64)
+                    s1a = np.array([m.start_offset if m else 0 for m in m1], np.int64)
+                    e2a = np.array([m.edge if m else -1 for m in m2], np.int64)
+                    s2a = np.array([m.start_offset if m else 0 for m in m2], np.int64)
             for pair, c in _collect_votes(
                 g, e1a, s1a, e2a, s2a, dead_end, dead_start, cfg
             ).items():

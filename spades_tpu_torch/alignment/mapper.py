@@ -33,6 +33,7 @@ from ..core import kmers as K
 from ..graph.graph import CondensedGraph
 from ..ops.count import _lexsort_rows, searchsorted_rows
 from ..ops.extension import canonicalize
+from ..utils.timetracer import span
 
 log = logging.getLogger("spades_tpu_torch.mapper")
 
@@ -198,49 +199,53 @@ class MappingEngine:
         as `map_read_batch`); with a non-empty kmer_mapper the unmapped
         residue re-runs on the host path, which applies the projection."""
         use_device = force_device or store.n >= _map_reads_threshold()
-        edge = np.full(store.n, -1, np.int64)
-        start = np.zeros(store.n, np.int64)
-        votes = np.zeros(store.n, np.int64)
-        c0 = 0
-        for ch in store.chunks:
+        with span("map_store", reads=int(store.n), device=bool(use_device)) as sp:
+            edge = np.full(store.n, -1, np.int64)
+            start = np.zeros(store.n, np.int64)
+            votes = np.zeros(store.n, np.int64)
+            c0 = 0
+            for ch in store.chunks:
+                if use_device:
+                    e, s, v = self._map_chunk_device(ch)
+                else:
+                    e, s, v = self._map_chunk_host(ch, kmer_mapper)
+                edge[c0 : c0 + ch.n] = e[: ch.n]
+                start[c0 : c0 + ch.n] = s[: ch.n]
+                votes[c0 : c0 + ch.n] = v[: ch.n]
+                c0 += ch.n
+            if kmer_mapper is None or kmer_mapper.size == 0:
+                return edge, start, votes
+            stats = {"reads": int(store.n), "device": bool(use_device),
+                     "unmapped": int((edge < 0).sum()), "rerun": 0, "recovered": 0}
             if use_device:
-                e, s, v = self._map_chunk_device(ch)
-            else:
-                e, s, v = self._map_chunk_host(ch, kmer_mapper)
-            edge[c0 : c0 + ch.n] = e[: ch.n]
-            start[c0 : c0 + ch.n] = s[: ch.n]
-            votes[c0 : c0 + ch.n] = v[: ch.n]
-            c0 += ch.n
-        if kmer_mapper is None or kmer_mapper.size == 0:
+                with span("map_store.residue") as rs:
+                    miss = np.flatnonzero(edge < 0)
+                    # The projection residue only recovers reads whose EVERY anchor
+                    # was glued away.  When the residue is a sliver (<1%) on a big
+                    # store, the recoveries cannot move insert-size medians or pair
+                    # weights, while the host pass would build the full host edge
+                    # index just for them — skip and say so.
+                    if miss.size and store.n >= 100_000 and miss.size < store.n // 100:
+                        log.info("skipping kmer-mapper residue pass (%d/%d unmapped, <1%%)",
+                                 miss.size, store.n)
+                        miss = np.zeros(0, np.int64)
+                    if miss.size:
+                        seqs = self._gather_sequences(store, miss)
+                        sub = map_read_batch(self.index, self.g, seqs,
+                                             kmer_mapper=kmer_mapper, _force_host=True)
+                        for i, m in zip(miss, sub):
+                            if m is not None:
+                                edge[i], start[i], votes[i] = m.edge, m.start_offset, m.n_hits
+                        stats["rerun"] = int(miss.size)
+                        stats["recovered"] = int(sum(m is not None for m in sub))
+                    rs.set(rerun=stats["rerun"], recovered=stats["recovered"])
+            RESIDUE_STATS.append(stats)
+            sp.set(unmapped=stats["unmapped"], rerun=stats["rerun"], recovered=stats["recovered"])
+            log.info("map_store: %d reads on the %s, %d unmapped there; kmer-mapper residue "
+                     "pass re-ran %d, recovered %d", stats["reads"],
+                     "device" if use_device else "host", stats["unmapped"], stats["rerun"],
+                     stats["recovered"])
             return edge, start, votes
-        stats = {"reads": int(store.n), "device": bool(use_device),
-                 "unmapped": int((edge < 0).sum()), "rerun": 0, "recovered": 0}
-        if use_device:
-            miss = np.flatnonzero(edge < 0)
-            # The projection residue only recovers reads whose EVERY anchor
-            # was glued away.  When the residue is a sliver (<1%) on a big
-            # store, the recoveries cannot move insert-size medians or pair
-            # weights, while the host pass would build the full host edge
-            # index just for them — skip and say so.
-            if miss.size and store.n >= 100_000 and miss.size < store.n // 100:
-                log.info("skipping kmer-mapper residue pass (%d/%d unmapped, <1%%)",
-                         miss.size, store.n)
-                miss = np.zeros(0, np.int64)
-            if miss.size:
-                seqs = self._gather_sequences(store, miss)
-                sub = map_read_batch(self.index, self.g, seqs,
-                                     kmer_mapper=kmer_mapper, _force_host=True)
-                for i, m in zip(miss, sub):
-                    if m is not None:
-                        edge[i], start[i], votes[i] = m.edge, m.start_offset, m.n_hits
-                stats["rerun"] = int(miss.size)
-                stats["recovered"] = int(sum(m is not None for m in sub))
-        RESIDUE_STATS.append(stats)
-        log.info("map_store: %d reads on the %s, %d unmapped there; kmer-mapper residue "
-                 "pass re-ran %d, recovered %d", stats["reads"],
-                 "device" if use_device else "host", stats["unmapped"], stats["rerun"],
-                 stats["recovered"])
-        return edge, start, votes
 
     def map_sequences(self, seqs, chunk_reads: int = 262144):
         """Map a list of sequences (str or uint8 codes) on the device: one

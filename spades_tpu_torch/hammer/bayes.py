@@ -193,7 +193,7 @@ def accumulate_quality(
             pos += n
             continue
         qc = torch.from_numpy(quals_to_codes(quals[pos : pos + n], R, L)).to(dev)
-        if dev.type == "cuda":
+        if timings is not None and dev.type == "cuda":
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
         P = idx.shape[1]
@@ -203,12 +203,12 @@ def accumulate_quality(
         rows = idx.reshape(-1)[sel].to(torch.int64)
         vals = table[win.reshape(-1, k)[sel].to(torch.int64)]
         _add_in_order(acc, rows, vals)
-        if dev.type == "cuda":
+        if timings is not None and dev.type == "cuda":
             ev[1].record()
             events.append(ev)
         pos += n
     kq.pos_log_err = acc.cpu().numpy()
-    if timings is not None and events:
+    if events:
         timings.setdefault("quality_ms", []).extend(a.elapsed_time(b) for a, b in events)
     return kq
 

@@ -21,7 +21,6 @@ device program has a plain numpy version in its module (`*_plain`).
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,6 +31,7 @@ from ..core import kmers as K
 from ..core.reads import ReadBatch, batch_iter
 from ..graph.coverage_model import fit_coverage_model
 from ..ops.count import count_sequences, searchsorted_rows
+from ..utils import timetracer
 from .clustering import cluster_kmers
 
 log = logging.getLogger("spades_tpu_torch.hammer")
@@ -200,58 +200,70 @@ def _correct_pass(
     stats: HammerStats,
     quals: list[str] | None,
     dev: torch.device,
-    tm: dict,
+    record: dict | None,
 ) -> list[str]:
     from . import bayes
 
-    def _mark(key, t0):
-        if dev.type == "cuda":
+    # a step's time ends with its device work only where someone reads it:
+    # a caller's `record`, or the span recorder
+    timed = dev.type == "cuda" and (record is not None or timetracer.enabled())
+
+    def step(name: str):
+        return timetracer.span(f"hammer.{name}", into=record, key=f"{name}_s")
+
+    def sync() -> None:
+        if timed:
             torch.cuda.synchronize(dev)
-        tm[key] = tm.get(key, 0.0) + time.perf_counter() - t0
-        return time.perf_counter()
 
     # Unlike the assembly counting path, hammer counts N windows too (N read
     # as A): an erroneous k-mer must itself be in the table so the clustering
     # can map it to its solid center (hamcluster semantics — bad k-mers join
     # the cluster of the true k-mer they derive from).
-    t0 = time.perf_counter()
-    clean = [s.upper().replace("N", "A") for s in seqs]
-    kc = count_sequences(clean, cfg.k, device=dev)
-    t0 = _mark("count_s", t0)
+    with step("count") as sp:
+        clean = [s.upper().replace("N", "A") for s in seqs]
+        kc = count_sequences(clean, cfg.k, device=dev)
+        sync()
+        sp.set(reads=len(seqs), unique_kmers=int(kc.num_unique))
     if kc.num_unique == 0:
         return seqs
     # window->row maps computed once, shared by every consumer below
     # (N positions are coded 0 == A in ReadBatch, so maps over `seqs`
     # equal maps over `clean`)
-    maps = build_window_maps(seqs, kc.words, cfg.k, cfg.batch_size, device=dev)
-    t0 = _mark("maps_s", t0)
-    labels = cluster_kmers(kc.words, cfg.k, cfg.tau)
-    t0 = _mark("cluster_s", t0)
-    info = fit_coverage_model(kc.counts)
-    solid_bound = max(cfg.min_solid_count, info.ec_bound)
-    t0 = _mark("coverage_s", t0)
+    with step("maps"):
+        maps = build_window_maps(seqs, kc.words, cfg.k, cfg.batch_size, device=dev)
+        sync()
+    with step("cluster") as sp:
+        labels = cluster_kmers(kc.words, cfg.k, cfg.tau)
+        sp.set(clusters=int(labels.max()) + 1 if labels.size else 0)
+    with step("coverage"):
+        info = fit_coverage_model(kc.counts)
+        solid_bound = max(cfg.min_solid_count, info.ec_bound)
 
     use_quality = cfg.use_quality and quals is not None and any(quals)
     if use_quality:
-        kq = bayes.accumulate_quality(kc, clean, quals, cfg.k, cfg.batch_size, maps=maps,
-                                      timings=tm)
-        t0 = _mark("quality_s", t0)
-        labels = bayes.subcluster_all(
-            kc.words, kc.counts, labels, kq, cfg.k, cfg.subcluster_max_members
-        )
-        centers, totals = _cluster_centers(kc.words, kc.counts, labels)
-        solid_center = bayes.solid_posterior(
-            kc.counts[centers], kq.total_err_prob()[centers], solid_bound
-        )
-        t0 = _mark("subcluster_s", t0)
-        tm["pos_log_err"] = kq.pos_log_err
+        with step("quality"):
+            kq = bayes.accumulate_quality(kc, clean, quals, cfg.k, cfg.batch_size, maps=maps,
+                                          timings=record)
+            sync()
+        with step("subcluster") as sp:
+            labels = bayes.subcluster_all(
+                kc.words, kc.counts, labels, kq, cfg.k, cfg.subcluster_max_members
+            )
+            centers, totals = _cluster_centers(kc.words, kc.counts, labels)
+            solid_center = bayes.solid_posterior(
+                kc.counts[centers], kq.total_err_prob()[centers], solid_bound
+            )
+            sp.set(clusters=len(centers))
+        if record is not None:
+            record["pos_log_err"] = kq.pos_log_err
         # iterative solid-set expansion runs over the full k-mer solid mask
-        solid_kmer = solid_center[labels] & (centers[labels] == np.arange(kc.num_unique))
-        solid_kmer, rounds = bayes.expand_solid(
-            kc, solid_kmer, clean, cfg.k, cfg.expander_rounds, cfg.batch_size,
-            maps=maps,
-        )
-        t0 = _mark("expand_s", t0)
+        with step("expand"):
+            solid_kmer = solid_center[labels] & (centers[labels] == np.arange(kc.num_unique))
+            solid_kmer, rounds = bayes.expand_solid(
+                kc, solid_kmer, clean, cfg.k, cfg.expander_rounds, cfg.batch_size,
+                maps=maps,
+            )
+            sync()
         # an expanded-solid k-mer acts as its own center from here on
         newly = solid_kmer & (centers[labels] != np.arange(kc.num_unique))
         if newly.any():
@@ -261,7 +273,8 @@ def _correct_pass(
         centers, totals = _cluster_centers(kc.words, kc.counts, labels)
         solid_center = kc.counts[centers] >= solid_bound
         newly = np.zeros(kc.num_unique, bool)
-    tm["labels"] = labels
+    if record is not None:
+        record["labels"] = labels
     stats.unique_kmers = kc.num_unique
     stats.clusters = len(centers)
     stats.solid_kmers = int(solid_center.sum())
@@ -270,41 +283,43 @@ def _correct_pass(
         kc.num_unique, cfg.k, len(centers), stats.solid_kmers, solid_bound,
     )
 
-    # per unique k-mer: its center row and whether it votes; expander-certified
-    # k-mers vote for themselves
-    center_idx = torch.from_numpy(
-        np.where(newly, np.arange(kc.num_unique), centers[labels])).to(dev)
-    kmer_good = torch.from_numpy(solid_center[labels] | newly).to(dev)
-    center_codes = torch.from_numpy(K.unpack(kc.words, cfg.k)).to(dev)  # canonical
-    events = []
-    out: list[str] = []
-    for batch, n, idx, present, use_rc in maps:
-        R, L = batch.codes.shape
-        if idx is None:
-            out.extend(batch.sequences()[:n])
-            continue
-        if dev.type == "cuda":
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        safe = torch.where(idx >= 0, idx, 0).to(torch.int64)
-        corrected, win = _vote_correct_batch(
-            torch.from_numpy(batch.codes).to(dev), center_codes, center_idx[safe], use_rc,
-            present & kmer_good[safe], cfg.k, cfg.majority)
-        if dev.type == "cuda":
-            ev[1].record()
-            events.append(ev)
-        corrected, win = corrected.cpu().numpy(), win.cpu().numpy()
-        inlen = np.arange(L)[None, :] < batch.lengths[:, None]
-        changed = (corrected != batch.codes) & win & inlen
-        stats.bases_changed += int(changed.sum())
-        stats.reads_changed += int(changed.any(axis=1)[:n].sum())
-        # N positions that received votes become called bases
-        new_nmask = batch.n_mask & ~win
-        fixed = ReadBatch(codes=corrected, lengths=batch.lengths, n_mask=new_nmask)
-        out.extend(fixed.sequences()[:n])
-    _mark("vote_s", t0)
+    with step("vote") as sp:
+        # per unique k-mer: its center row and whether it votes;
+        # expander-certified k-mers vote for themselves
+        center_idx = torch.from_numpy(
+            np.where(newly, np.arange(kc.num_unique), centers[labels])).to(dev)
+        kmer_good = torch.from_numpy(solid_center[labels] | newly).to(dev)
+        center_codes = torch.from_numpy(K.unpack(kc.words, cfg.k)).to(dev)  # canonical
+        events = [] if record is not None and dev.type == "cuda" else None
+        out: list[str] = []
+        for batch, n, idx, present, use_rc in maps:
+            R, L = batch.codes.shape
+            if idx is None:
+                out.extend(batch.sequences()[:n])
+                continue
+            if events is not None:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            safe = torch.where(idx >= 0, idx, 0).to(torch.int64)
+            corrected, win = _vote_correct_batch(
+                torch.from_numpy(batch.codes).to(dev), center_codes, center_idx[safe], use_rc,
+                present & kmer_good[safe], cfg.k, cfg.majority)
+            if events is not None:
+                ev[1].record()
+                events.append(ev)
+            corrected, win = corrected.cpu().numpy(), win.cpu().numpy()
+            inlen = np.arange(L)[None, :] < batch.lengths[:, None]
+            changed = (corrected != batch.codes) & win & inlen
+            stats.bases_changed += int(changed.sum())
+            stats.reads_changed += int(changed.any(axis=1)[:n].sum())
+            # N positions that received votes become called bases
+            new_nmask = batch.n_mask & ~win
+            fixed = ReadBatch(codes=corrected, lengths=batch.lengths, n_mask=new_nmask)
+            out.extend(fixed.sequences()[:n])
+        sync()
+        sp.set(bases_changed=stats.bases_changed)
     if events:
-        tm.setdefault("vote_ms", []).extend(a.elapsed_time(b) for a, b in events)
+        record.setdefault("vote_ms", []).extend(a.elapsed_time(b) for a, b in events)
     return out
 
 
@@ -323,19 +338,21 @@ def correct_reads(
 
     device: where the device work runs (None: the CUDA card; there is no
     silent CPU fallback, see `resolve_device`).  record: optional dict that
-    receives, summed over passes, the wall seconds of each step, each ended
-    by a device synchronise (`count_s`, `maps_s`, `cluster_s`, `coverage_s`,
-    `quality_s`, `subcluster_s`, `expand_s`, `vote_s`), the CUDA-event
-    milliseconds of every batch of the quality sum and the vote on the card
-    (`quality_ms`, `vote_ms`), and the last pass's cluster labels (`labels`)
-    and quality sums (`pos_log_err`)."""
+    receives, summed over passes, the wall seconds of each step (its
+    `hammer.<step>` span of `utils/timetracer.py`; a step with device work
+    ends with a device synchronise): `count_s`, `maps_s`, `cluster_s`,
+    `coverage_s`, `quality_s`, `subcluster_s`, `expand_s`, `vote_s`; the
+    CUDA-event milliseconds of every batch of the quality sum and the vote
+    on the card (`quality_ms`, `vote_ms`); and the last pass's cluster
+    labels (`labels`) and quality sums (`pos_log_err`).  Without `record`
+    no CUDA event is made, and a step synchronises only while the span
+    recorder is on."""
     cfg = cfg or HammerConfig()
     dev = resolve_device(device)
-    tm = record if record is not None else {}
     stats = HammerStats(reads_total=len(seqs))
     for it in range(cfg.n_iters):
         before = stats.bases_changed
-        seqs = _correct_pass(seqs, cfg, stats, quals, dev, tm)
+        seqs = _correct_pass(seqs, cfg, stats, quals, dev, record)
         log.info(
             "hammer iteration %d: %d bases changed", it, stats.bases_changed - before
         )

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import gc
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch
 from .. import resolve_device
 from ..core import kmers as K
 from ..core.reads import PackedChunk, ReadBatch
+from ..utils.timetracer import span
 from .cuda_kernels import canonical_window_keys
 
 
@@ -215,21 +215,19 @@ class DeviceRunStack:
     def push(self, keys: torch.Tensor, counts: torch.Tensor, nu: int) -> None:
         if nu <= 0:
             return
-        t0 = time.perf_counter()
-        self.stack.append(self._compact(keys, counts, nu))
-        while len(self.stack) >= 2 and self.stack[-1][2] == self.stack[-2][2]:
-            self._merge_top()
-        self.tm["merge_s"] = self.tm.get("merge_s", 0.0) + time.perf_counter() - t0
+        with span(".merge", into=self.tm, key="merge_s"):
+            self.stack.append(self._compact(keys, counts, nu))
+            while len(self.stack) >= 2 and self.stack[-1][2] == self.stack[-2][2]:
+                self._merge_top()
 
     def finish_device(self):
         """Merge every run into one; returns its (keys (nK, U), counts (U,))
         on the device, or None when nothing was pushed."""
         if not self.stack:
             return None
-        t0 = time.perf_counter()
-        while len(self.stack) >= 2:
-            self._merge_top()
-        self.tm["merge_s"] = self.tm.get("merge_s", 0.0) + time.perf_counter() - t0
+        with span(".merge", into=self.tm, key="merge_s"):
+            while len(self.stack) >= 2:
+                self._merge_top()
         w, c, _, nu = self.stack.pop()
         return w[:, :nu], c[:nu]
 
@@ -240,14 +238,13 @@ class DeviceRunStack:
             return KmerCounts(k=self.k, words=np.zeros((0, W), np.uint32),
                               counts=np.zeros(0, np.int64))
         w, c = got
-        t0 = time.perf_counter()
-        # counts cross to the host as uint16 when they fit (the common case:
-        # multiplicities ~ coverage) — 2 bytes/row instead of 8
-        if int(c.max()) < 0xFFFF:
-            c = c.to(torch.uint16)
-        keys = w.T.contiguous().cpu().numpy()
-        counts = c.cpu().numpy().astype(np.int64)
-        self.tm["pull_s"] = self.tm.get("pull_s", 0.0) + time.perf_counter() - t0
+        with span(".pull", into=self.tm, key="pull_s"):
+            # counts cross to the host as uint16 when they fit (the common case:
+            # multiplicities ~ coverage) — 2 bytes/row instead of 8
+            if int(c.max()) < 0xFFFF:
+                c = c.to(torch.uint16)
+            keys = w.T.contiguous().cpu().numpy()
+            counts = c.cpu().numpy().astype(np.int64)
         return KmerCounts(k=self.k, words=K.keys_to_words(keys, W), counts=counts)
 
 
@@ -369,7 +366,9 @@ def count_reads(batches, k: int, timings: dict | None = None,
     (upload + kernel + sort, synchronized), device_first_s (the first such
     batch, which carries the kernel build when it is cold), pull_s (final
     device->host transfer), merge_s (device run merging + host merge),
-    host_s (numpy small-batch path), and n_batches (device batches).
+    host_s (numpy small-batch path), and n_batches (device batches).  Each
+    phase is a span (`.count_device`, `.pull`, `.merge`, `.count_host`,
+    named after the caller's step: `construction.count_host`).
     """
     dev = resolve_device(device)
     tm = timings if timings is not None else {}
@@ -399,28 +398,26 @@ def count_reads(batches, k: int, timings: dict | None = None,
             else:
                 raise TypeError(f"cannot count a {type(b).__name__}")
             if small:
-                t0 = time.perf_counter()
-                r = count_batch_host(hb.codes[:R], hb.lengths[:R], hb.n_mask[:R], k)
-                tm["host_s"] += time.perf_counter() - t0
+                with span(".count_host", into=tm, key="host_s", reads=int(R)):
+                    r = count_batch_host(hb.codes[:R], hb.lengths[:R], hb.n_mask[:R], k)
                 if r.num_unique:
                     if zero_counts:
                         r = KmerCounts(k=r.k, words=r.words,
                                        counts=np.zeros_like(r.counts))
                     host_runs.append(r)
                 continue
-            t0 = time.perf_counter()
-            if isinstance(b, PackedChunk):
-                # run-wide read store: uploaded once, reused at every k
-                pc, pn, lengths = b.device(dev)
-            else:
-                pc, pn, lengths, L = b.packed()
-                pc, pn, lengths = (torch.from_numpy(a).to(dev) for a in (pc, pn, lengths))
-            uk, uc = count_batch_packed_unique(pc, pn, lengths, L, k)
-            nu = uk.shape[1]
-            dt = time.perf_counter() - t0
-            tm["device_s"] += dt
+            before = tm["device_s"]
+            with span(".count_device", into=tm, key="device_s", reads=int(R)):
+                if isinstance(b, PackedChunk):
+                    # run-wide read store: uploaded once, reused at every k
+                    pc, pn, lengths = b.device(dev)
+                else:
+                    pc, pn, lengths, L = b.packed()
+                    pc, pn, lengths = (torch.from_numpy(a).to(dev) for a in (pc, pn, lengths))
+                uk, uc = count_batch_packed_unique(pc, pn, lengths, L, k)
+                nu = uk.shape[1]
             if first_device:
-                tm["device_first_s"] = dt
+                tm["device_first_s"] = tm["device_s"] - before
                 first_device = False
             tm["n_batches"] += 1
             if nu:
@@ -434,10 +431,8 @@ def count_reads(batches, k: int, timings: dict | None = None,
         runs = runs + [dstack.finish()]
     if not runs:
         return _empty_counts(k)
-    t0 = time.perf_counter()
-    out = merge_counts(runs)
-    tm["merge_s"] += time.perf_counter() - t0
-    return out
+    with span(".merge", into=tm, key="merge_s"):
+        return merge_counts(runs)
 
 
 def count_sequences(seqs, k: int, batch_size: int = 65536,

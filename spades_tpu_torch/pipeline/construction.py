@@ -9,7 +9,6 @@ split of the reads, `hpcspades/mpi/stages/construction_mpi.cpp`).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -22,6 +21,7 @@ from ..ops import count as _count
 from ..ops import early_clip as _early
 from ..ops import extension as _ext
 from ..parallel.distributed import EXCHANGED, resolve_group
+from ..utils.timetracer import span
 
 
 @dataclass
@@ -43,9 +43,8 @@ def _count_sharded(batches, k1: int, group, dev, tm: dict) -> _count.KmerCounts:
     from ..parallel.sharded_count import count_kmers_sharded
 
     sent0 = EXCHANGED["bytes"]
-    t0 = time.perf_counter()
-    p1 = count_kmers_sharded(batches, k1, group, dev, share=True, timings=tm)
-    tm["sharded_count_s"] = time.perf_counter() - t0
+    with span(".count_sharded", into=tm, key="sharded_count_s"):
+        p1 = count_kmers_sharded(batches, k1, group, dev, share=True, timings=tm)
     tm["exchanged_bytes"] = EXCHANGED["bytes"] - sent0
     return p1
 
@@ -110,38 +109,34 @@ def construct_graph(
     else:
         p1 = _count_sharded(batches, k1, grp, dev, tm)
     if min_count > 1:
-        t0 = time.perf_counter()
-        keep = p1.counts >= min_count
-        p1 = _count.KmerCounts(k=p1.k, words=p1.words[keep], counts=p1.counts[keep])
-        tm["filter_s"] = time.perf_counter() - t0
+        with span(".filter", into=tm, key="filter_s"):
+            keep = p1.counts >= min_count
+            p1 = _count.KmerCounts(k=p1.k, words=p1.words[keep], counts=p1.counts[keep])
     if extra_sequences and not fused_structure:
         # structure rows absent from the read counts carry coverage 0
         # (SPAdes keeps contig streams apart "for not counting it in
         # coverage", stages/construction.cpp:110,233)
-        t0 = time.perf_counter()
-        p_extra = _count.count_sequences(extra_sequences, k1, batch_size=batch_size,
-                                         device=dev)
-        structure = _count.merge_counts([p1, p_extra])
-        cov = np.zeros(structure.num_unique, np.int64)
-        rows = _count.searchsorted_rows(structure.words, p1.words)
-        cov[rows] = p1.counts
-        p1 = _count.KmerCounts(k=p1.k, words=structure.words, counts=cov)
-        tm["extra_count_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    index = _ext.build_extension_index(p1)
-    tm["ext_build_s"] = time.perf_counter() - t0
+        with span(".extra_count", into=tm, key="extra_count_s"):
+            p_extra = _count.count_sequences(extra_sequences, k1, batch_size=batch_size,
+                                             device=dev)
+            structure = _count.merge_counts([p1, p_extra])
+            cov = np.zeros(structure.num_unique, np.int64)
+            rows = _count.searchsorted_rows(structure.words, p1.words)
+            cov[rows] = p1.counts
+            p1 = _count.KmerCounts(k=p1.k, words=structure.words, counts=cov)
+    with span(".ext_build", into=tm, key="ext_build_s"):
+        index = _ext.build_extension_index(p1)
     if early_at_clip or early_tip_clip:
-        t0 = time.perf_counter()
-        if early_at_clip:
-            _early.remove_at_edges(index)
-            _early.remove_at_tips(index)
-        if early_tip_clip:
-            bound = early_tc_length_bound
-            if bound is None:
-                bound = (read_length - k) if read_length and read_length > k else k
-            _early.clip_tips_early(index, bound)
-        tm["early_clip_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    graph = _condense.condense(index, p1, device=dev)
-    tm["condense_s"] = time.perf_counter() - t0
+        with span(".early_clip", into=tm, key="early_clip_s"):
+            if early_at_clip:
+                _early.remove_at_edges(index)
+                _early.remove_at_tips(index)
+            if early_tip_clip:
+                bound = early_tc_length_bound
+                if bound is None:
+                    bound = (read_length - k) if read_length and read_length > k else k
+                _early.clip_tips_early(index, bound)
+    with span(".condense", into=tm, key="condense_s") as s:
+        graph = _condense.condense(index, p1, device=dev)
+        s.set(unique_kmers=int(p1.num_unique), edges=int(graph.num_edges))
     return ConstructionResult(graph=graph, p1_counts=p1, index=index, timings=tm)

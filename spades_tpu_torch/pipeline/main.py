@@ -320,11 +320,33 @@ def _assemble(args, argv, raw_argv, numbered, mode, device) -> int:
     log = logging.getLogger("spades_tpu_torch")
     if args.debug:
         logging.getLogger().setLevel(logging.DEBUG)
-    if args.time_tracing:
-        from ..utils import timetracer
+    from ..utils import timetracer
 
-        timetracer.enable()
+    if args.time_tracing or args.profile:
+        timetracer.enable(profile=args.profile)
     prof = _start_profiler(device) if args.profile else None
+    # the trace files are written on every exit path, early returns and
+    # errors included
+    try:
+        with timetracer.span("spades"):
+            return _run_job(args, argv, raw_argv, numbered, mode, device, log)
+    finally:
+        if args.time_tracing:
+            tpath = os.path.join(args.output_dir, "spades_time_trace.json")
+            timetracer.write(tpath)
+            log.info("time trace -> %s", tpath)
+        timetracer.disable()
+        if prof is not None:
+            prof.stop()
+            pdir = os.path.join(args.output_dir, "profile")
+            os.makedirs(pdir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(pdir, "trace.json"))
+            log.info("torch profiler trace -> %s", pdir)
+
+
+def _run_job(args, argv, raw_argv, numbered, mode, device, log) -> int:
+    from ..utils.timetracer import enabled, span
+
     log.info("spades_tpu_torch %s, mode=%s, device=%s, output=%s",
              __version__, mode, device, args.output_dir)
 
@@ -337,14 +359,23 @@ def _assemble(args, argv, raw_argv, numbered, mode, device) -> int:
     from ..pipeline.run import run_assembly
 
     # --- load libraries (library.hpp / DataSet model) --------------------
+    def _parsed(sp, seqs):
+        if enabled():
+            sp.set(reads=len(seqs), bases=sum(map(len, seqs)))
+
     def _seqs(path):
-        return [r.seq for r in read_fastx(path)]
+        with span("cli.parse") as sp:
+            seqs = [r.seq for r in read_fastx(path)]
+            _parsed(sp, seqs)
+        return seqs
 
     def _seqs_quals(path):
         seqs, quals = [], []
-        for r in read_fastx(path):
-            seqs.append(r.seq)
-            quals.append(r.qual or "")
+        with span("cli.parse") as sp:
+            for r in read_fastx(path):
+                seqs.append(r.seq)
+                quals.append(r.qual or "")
+            _parsed(sp, seqs)
         return seqs, quals
 
     dataset = DataSet()
@@ -451,15 +482,16 @@ def _assemble(args, argv, raw_argv, numbered, mode, device) -> int:
                 spans.append((lib, len(lib.left), 0))
                 flat += lib.left
                 flat_quals += (lib.left_quals or [""] * len(lib.left))
-        if args.iontorrent:
-            from ..hammer.ionhammer import correct_ion_reads
+        with span("error_correction", reads=len(flat)):
+            if args.iontorrent:
+                from ..hammer.ionhammer import correct_ion_reads
 
-            corrected, changed = correct_ion_reads(flat)
-            st = HammerStats(reads_total=len(flat), bases_changed=changed,
-                             reads_changed=sum(a != b for a, b in zip(corrected, flat)))
-        else:
-            corrected, st = correct_reads(flat, HammerConfig(), quals=flat_quals,
-                                          device=device)
+                corrected, changed = correct_ion_reads(flat)
+                st = HammerStats(reads_total=len(flat), bases_changed=changed,
+                                 reads_changed=sum(a != b for a, b in zip(corrected, flat)))
+            else:
+                corrected, st = correct_reads(flat, HammerConfig(), quals=flat_quals,
+                                              device=device)
         log.info(
             "error correction: %d/%d reads changed, %d bases",
             st.reads_changed, st.reads_total, st.bases_changed,
@@ -472,16 +504,17 @@ def _assemble(args, argv, raw_argv, numbered, mode, device) -> int:
         reads = dataset.all_short_reads()
         paired_libs = dataset.paired()
         cdir = os.path.join(args.output_dir, "corrected")
-        os.makedirs(cdir, exist_ok=True)
-        for li, lib in enumerate(dataset.paired()):
-            write_fasta(os.path.join(cdir, f"lib{li + 1}_1.cor.fasta"),
-                        [(f"read{i+1}/1", r) for i, r in enumerate(lib.left)])
-            write_fasta(os.path.join(cdir, f"lib{li + 1}_2.cor.fasta"),
-                        [(f"read{i+1}/2", r) for i, r in enumerate(lib.right)])
-        singles = dataset.singles()
-        if singles:
-            write_fasta(os.path.join(cdir, "unpaired.cor.fasta"),
-                        [(f"read{i+1}", r) for i, r in enumerate(singles)])
+        with span("cli.ec_write", reads=len(corrected)):
+            os.makedirs(cdir, exist_ok=True)
+            for li, lib in enumerate(dataset.paired()):
+                write_fasta(os.path.join(cdir, f"lib{li + 1}_1.cor.fasta"),
+                            [(f"read{i+1}/1", r) for i, r in enumerate(lib.left)])
+                write_fasta(os.path.join(cdir, f"lib{li + 1}_2.cor.fasta"),
+                            [(f"read{i+1}/2", r) for i, r in enumerate(lib.right)])
+            singles = dataset.singles()
+            if singles:
+                write_fasta(os.path.join(cdir, "unpaired.cor.fasta"),
+                            [(f"read{i+1}", r) for i, r in enumerate(singles)])
         if args.only_error_correction or args.stop_after == "ec":
             _log_launches(log)
             log.info("======= spades_tpu_torch finished (error correction only). "
@@ -606,18 +639,6 @@ def _assemble(args, argv, raw_argv, numbered, mode, device) -> int:
                 len(contigs), [len(c.seq) for c in contigs],
             )
             return 1
-    if args.time_tracing:
-        from ..utils import timetracer
-
-        tpath = os.path.join(args.output_dir, "spades_time_trace.json")
-        timetracer.write(tpath)
-        log.info("time trace -> %s", tpath)
-    if prof is not None:
-        prof.stop()
-        pdir = os.path.join(args.output_dir, "profile")
-        os.makedirs(pdir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(pdir, "trace.json"))
-        log.info("torch profiler trace -> %s", pdir)
     _log_launches(log)
     if args.num_processes > 1:
         from ..parallel.distributed import EXCHANGED

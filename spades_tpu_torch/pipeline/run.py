@@ -28,6 +28,7 @@ import numpy as np
 
 from ..graph.simplify import SimplifyConfig
 from .. import resolve_device
+from ..utils.timetracer import span
 from .spades_stages import (
     ChromosomeRemoval,
     Construction,
@@ -130,54 +131,57 @@ def run_assembly(
     from ..core.reads import ReadStore
     from ..io.libraries import iter_fr_libs
 
-    paired_stores = []
-    count_store = None
-    if paired_libs:
-        libs = iter_fr_libs(paired_libs)
-        for l, r, t in libs:
-            paired_stores.append(
-                (ReadStore.build(l), ReadStore.build(r, rc=True), t)
-            )
-        # reuse the mapped stores for counting when `reads` is exactly the
-        # libraries' concatenation (canonical k-mer counts are orientation-
-        # invariant, so the RC-stored right mates count identically)
-        concat_len = sum(len(l) + len(r) for l, r, _ in libs)
-        if concat_len == len(reads):
-            flat = []
-            for l, r, _ in libs:
-                flat.extend(l)
-                flat.extend(r)
-            def _same(a, b):
-                if a is b:
-                    return True
-                if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
-                    return (
-                        isinstance(a, np.ndarray)
-                        and isinstance(b, np.ndarray)
-                        and a.shape == b.shape
-                        and bool((a == b).all())
-                    )
-                return a == b
+    with span("cli.pack") as sp:
+        paired_stores = []
+        count_store = None
+        if paired_libs:
+            libs = iter_fr_libs(paired_libs)
+            for l, r, t in libs:
+                paired_stores.append(
+                    (ReadStore.build(l), ReadStore.build(r, rc=True), t)
+                )
+            # reuse the mapped stores for counting when `reads` is exactly the
+            # libraries' concatenation (canonical k-mer counts are orientation-
+            # invariant, so the RC-stored right mates count identically)
+            concat_len = sum(len(l) + len(r) for l, r, _ in libs)
+            if concat_len == len(reads):
+                flat = []
+                for l, r, _ in libs:
+                    flat.extend(l)
+                    flat.extend(r)
+                def _same(a, b):
+                    if a is b:
+                        return True
+                    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+                        return (
+                            isinstance(a, np.ndarray)
+                            and isinstance(b, np.ndarray)
+                            and a.shape == b.shape
+                            and bool((a == b).all())
+                        )
+                    return a == b
 
-            # exact check: a sampled probe could false-positive and
-            # silently count the wrong read set (identity short-circuits
-            # make the common lefts+rights case O(n) pointer compares)
-            if all(_same(a, b) for a, b in zip(reads, flat)):
-                chunks = []
-                for st1, st2rc, _ in paired_stores:
-                    chunks.extend(st1.chunks)
-                    chunks.extend(st2rc.chunks)
-                count_store = ReadStore(chunks, concat_len)
-    if count_store is None and reads:
-        count_store = ReadStore.build(reads)
-    ss_store = None
-    if mode == "rna" and ss and reads:
-        # the stranded library packed once for every K's two SS mapping
-        # passes (reads of k bases or fewer map nowhere, so the whole set
-        # serves every K)
-        from ..alignment.ss_coverage import read_store
+                # exact check: a sampled probe could false-positive and
+                # silently count the wrong read set (identity short-circuits
+                # make the common lefts+rights case O(n) pointer compares)
+                if all(_same(a, b) for a, b in zip(reads, flat)):
+                    chunks = []
+                    for st1, st2rc, _ in paired_stores:
+                        chunks.extend(st1.chunks)
+                        chunks.extend(st2rc.chunks)
+                    count_store = ReadStore(chunks, concat_len)
+        if count_store is None and reads:
+            count_store = ReadStore.build(reads)
+        ss_store = None
+        if mode == "rna" and ss and reads:
+            # the stranded library packed once for every K's two SS mapping
+            # passes (reads of k bases or fewer map nowhere, so the whole set
+            # serves every K)
+            from ..alignment.ss_coverage import read_store
 
-        ss_store = read_store(reads, rf=ss == "rf")
+            ss_store = read_store(reads, rf=ss == "rf")
+        sp.set(reads=count_store.n if count_store is not None else 0,
+               paired_reads=sum(a.n + b.n for a, b, _ in paired_stores))
 
     # restart addressing: "k<K>:<stage>", bare "<stage>" (first K), or "last"
     restart_k = None
@@ -188,117 +192,118 @@ def run_assembly(
         restart_stage = spart or None
 
     for ki, k in enumerate(k_list):
-        is_last = ki == len(k_list) - 1
-        kdir = os.path.join(output_dir, f"K{k}")
-        os.makedirs(kdir, exist_ok=True)
-        ctx = AssemblyContext(
-            k=k,
-            output_dir=kdir,
-            reads=[r for r in reads if len(r) > k],
-            paired=list(paired_libs or []),
-            long_reads=list(long_reads or []),
-            extra_sequences=list(prev_contigs),
-            read_length=read_length,
-            mode=mode,
-            device=dev,
-        )
-        ctx.hmm_profiles = list(hmm_profiles or [])
-        ctx.config_overlay = config_overlay
-        ctx.read_store = count_store
-        ctx.paired_stores = paired_stores
-        mgr = StageManager(SavesPolicy(checkpoints))
-        if assembly_graph and is_last:
-            # start from a GFA graph (load_graph.cpp / --assembly-graph)
-            mgr.add(LoadGraph(assembly_graph), GenomicInfoFiller())
-        elif assembly_graph:
-            continue  # GFA input: no multi-K laddering, main iteration only
-        else:
-            from .config_overlay import apply_overlay, construction_kwargs
+        with span(f"k{k}", k=k):
+            is_last = ki == len(k_list) - 1
+            kdir = os.path.join(output_dir, f"K{k}")
+            os.makedirs(kdir, exist_ok=True)
+            ctx = AssemblyContext(
+                k=k,
+                output_dir=kdir,
+                reads=[r for r in reads if len(r) > k],
+                paired=list(paired_libs or []),
+                long_reads=list(long_reads or []),
+                extra_sequences=list(prev_contigs),
+                read_length=read_length,
+                mode=mode,
+                device=dev,
+            )
+            ctx.hmm_profiles = list(hmm_profiles or [])
+            ctx.config_overlay = config_overlay
+            ctx.read_store = count_store
+            ctx.paired_stores = paired_stores
+            mgr = StageManager(SavesPolicy(checkpoints))
+            if assembly_graph and is_last:
+                # start from a GFA graph (load_graph.cpp / --assembly-graph)
+                mgr.add(LoadGraph(assembly_graph), GenomicInfoFiller())
+            elif assembly_graph:
+                continue  # GFA input: no multi-K laddering, main iteration only
+            else:
+                from .config_overlay import apply_overlay, construction_kwargs
 
-            # Early tip clipping exists in SPAdes to shrink the input of its
-            # (memory-bound, sequential) condenser (construction.cpp:448-449);
-            # here condensation is a native radix pass, so pre-condensation
-            # clipping buys nothing while graph-level tip clipping removes the
-            # same tips.  Off by default; the config overlay can turn it on.
-            # The A/T clipper runs for RNA pipelines only (construction.cpp:446).
-            ckw = {
-                "min_count": min_count,
-                "early_tip_clip": False,
-                "early_at_clip": mode in ("rna", "rnaviral"),
-            }
-            ckw.update(construction_kwargs(config_overlay))
-            mgr.add(
-                Construction(**ckw),
-                GenomicInfoFiller(),
-                # AddSimplificationStages order (pipeline.cpp:154-176):
-                # RawSimplification -> early gapcloser -> Simplification ->
-                # late gapcloser
-                RawSimplification(),
-                GapClosing("early"),
-                Simplification(apply_overlay(
-                    mode_simplify_config(mode, read_length),
-                    config_overlay, "simplification",
-                )),
-                GapClosing("late"),
+                # Early tip clipping exists in SPAdes to shrink the input of its
+                # (memory-bound, sequential) condenser (construction.cpp:448-449);
+                # here condensation is a native radix pass, so pre-condensation
+                # clipping buys nothing while graph-level tip clipping removes the
+                # same tips.  Off by default; the config overlay can turn it on.
+                # The A/T clipper runs for RNA pipelines only (construction.cpp:446).
+                ckw = {
+                    "min_count": min_count,
+                    "early_tip_clip": False,
+                    "early_at_clip": mode in ("rna", "rnaviral"),
+                }
+                ckw.update(construction_kwargs(config_overlay))
+                mgr.add(
+                    Construction(**ckw),
+                    GenomicInfoFiller(),
+                    # AddSimplificationStages order (pipeline.cpp:154-176):
+                    # RawSimplification -> early gapcloser -> Simplification ->
+                    # late gapcloser
+                    RawSimplification(),
+                    GapClosing("early"),
+                    Simplification(apply_overlay(
+                        mode_simplify_config(mode, read_length),
+                        config_overlay, "simplification",
+                    )),
+                    GapClosing("late"),
+                )
+            if is_last and series_analysis:
+                # meta mode multi-sample series analysis (pipeline.cpp gates on
+                # cfg.series_analysis being set)
+                mgr.add(SeriesAnalysis(series_analysis))
+            if mode == "rna" and ss:
+                # strand-specific transcript-boundary splitting at every K
+                # (pipeline.cpp rna branch: SSEdgeSplit stage); `ss` outside rna
+                # mode is ignored, as in the JAX package
+                mgr.add(SSEdgeSplit(ss, store=ss_store))
+            if is_last and long_reads:
+                # long-read alignment feeds RR and closes remaining gaps
+                # (pipeline.cpp: HybridLibrariesAligning on the main iteration)
+                mgr.add(HybridAligning())
+            if is_last and mode in ("plasmid", "metaplasmid", "metaviral"):
+                # extract plasmid candidates before repeat resolution
+                # (pipeline.cpp plasmid branch: ChromosomeRemoval stage)
+                mgr.add(ChromosomeRemoval())
+            if is_last and mode in ("metaplasmid", "metaviral"):
+                # iterative coverage-cutoff extraction loop (AddMetaplasmidStages)
+                mgr.add(MetaplasmidExtraction())
+            if is_last and mismatch_correction:
+                # careful mode (or --mismatch-correction) polishes edge
+                # sequences before output (pipeline.cpp gates MismatchCorrection
+                # on cfg.correct_mismatches)
+                mgr.add(MismatchCorrection())
+            if is_last and mode == "meta" and paired_libs and not disable_rr:
+                # two-step repeat resolution (pipeline.cpp:139-151): preliminary
+                # RR feeds its contigs back as trusted paths for the main pass
+                mgr.add(
+                    PairInfoCount(preliminary=True),
+                    DistanceEstimation(preliminary=True),
+                    RepeatResolution(preliminary=True),
+                    SecondPhaseSetup(),
+                )
+            if is_last and not disable_rr:
+                # repeat resolution runs on the main (last) iteration only
+                # (pipeline.cpp: RepeatResolution gated on main_iteration,
+                # preceded by PairInfoCount + DistanceEstimation)
+                mgr.add(PairInfoCount(), DistanceEstimation(), RepeatResolution())
+            if is_last and (hmm_profiles or mode in ("bio", "corona")):
+                # domain extraction / HMM-guided analysis (bgc + corona modes)
+                mgr.add(DomainAnalysis())
+            mgr.add(ContigOutput(gfa_version=gfa_version))
+            start = None
+            if restart_from == "last":
+                start = "last"
+            elif restart_k is not None:
+                if k < restart_k:
+                    start = "last"  # fully resume earlier K from its checkpoint
+                elif k == restart_k:
+                    start = restart_stage
+            mgr.run(ctx, start_from=start)
+            # the last engine's device index must not outlive its K
+            ctx.invalidate_mapping()
+            prev_contigs = [c.seq for c in ctx.contigs]
+            result = RunResult(
+                contigs=ctx.contigs, scaffolds=ctx.scaffolds, graph=ctx.graph, k=k
             )
-        if is_last and series_analysis:
-            # meta mode multi-sample series analysis (pipeline.cpp gates on
-            # cfg.series_analysis being set)
-            mgr.add(SeriesAnalysis(series_analysis))
-        if mode == "rna" and ss:
-            # strand-specific transcript-boundary splitting at every K
-            # (pipeline.cpp rna branch: SSEdgeSplit stage); `ss` outside rna
-            # mode is ignored, as in the JAX package
-            mgr.add(SSEdgeSplit(ss, store=ss_store))
-        if is_last and long_reads:
-            # long-read alignment feeds RR and closes remaining gaps
-            # (pipeline.cpp: HybridLibrariesAligning on the main iteration)
-            mgr.add(HybridAligning())
-        if is_last and mode in ("plasmid", "metaplasmid", "metaviral"):
-            # extract plasmid candidates before repeat resolution
-            # (pipeline.cpp plasmid branch: ChromosomeRemoval stage)
-            mgr.add(ChromosomeRemoval())
-        if is_last and mode in ("metaplasmid", "metaviral"):
-            # iterative coverage-cutoff extraction loop (AddMetaplasmidStages)
-            mgr.add(MetaplasmidExtraction())
-        if is_last and mismatch_correction:
-            # careful mode (or --mismatch-correction) polishes edge
-            # sequences before output (pipeline.cpp gates MismatchCorrection
-            # on cfg.correct_mismatches)
-            mgr.add(MismatchCorrection())
-        if is_last and mode == "meta" and paired_libs and not disable_rr:
-            # two-step repeat resolution (pipeline.cpp:139-151): preliminary
-            # RR feeds its contigs back as trusted paths for the main pass
-            mgr.add(
-                PairInfoCount(preliminary=True),
-                DistanceEstimation(preliminary=True),
-                RepeatResolution(preliminary=True),
-                SecondPhaseSetup(),
-            )
-        if is_last and not disable_rr:
-            # repeat resolution runs on the main (last) iteration only
-            # (pipeline.cpp: RepeatResolution gated on main_iteration,
-            # preceded by PairInfoCount + DistanceEstimation)
-            mgr.add(PairInfoCount(), DistanceEstimation(), RepeatResolution())
-        if is_last and (hmm_profiles or mode in ("bio", "corona")):
-            # domain extraction / HMM-guided analysis (bgc + corona modes)
-            mgr.add(DomainAnalysis())
-        mgr.add(ContigOutput(gfa_version=gfa_version))
-        start = None
-        if restart_from == "last":
-            start = "last"
-        elif restart_k is not None:
-            if k < restart_k:
-                start = "last"  # fully resume earlier K from its checkpoint
-            elif k == restart_k:
-                start = restart_stage
-        mgr.run(ctx, start_from=start)
-        # the last engine's device index must not outlive its K
-        ctx.invalidate_mapping()
-        prev_contigs = [c.seq for c in ctx.contigs]
-        result = RunResult(
-            contigs=ctx.contigs, scaffolds=ctx.scaffolds, graph=ctx.graph, k=k
-        )
 
     # final copy (copy_files semantics): last K products to the output root
     last_kdir = os.path.join(output_dir, f"K{result.k}")

@@ -26,6 +26,7 @@ from ..graph.simplify import SimplifyConfig, simplify
 from ..io.contigs import extract_contigs, write_contigs
 from ..io.gfa import write_gfa
 from .construction import construct_graph
+from ..utils.timetracer import span
 from .stages import AssemblyContext, AssemblyStage
 
 log = logging.getLogger("spades_tpu_torch.stages")
@@ -677,19 +678,19 @@ class PairInfoCount(AssemblyStage):
         )
 
         g = ctx.graph
-        t0 = time.perf_counter()
-        engine = ctx.mapping_engine()
-        engine._device_index()
-        t_idx = time.perf_counter() - t0
+        tm: dict = {}
+        with span("pair_info_count.index", into=tm, key="index_s"):
+            engine = ctx.mapping_engine()
+            engine._device_index()
         for st1, st2rc, lib_type in ctx.paired_stores:
             if st1.n == 0 or st2rc.n == 0:
                 log.info("%s library: empty — skipped", lib_type)
                 continue
-            t0 = time.perf_counter()
-            e1, s1, _ = engine.map_store(st1, kmer_mapper=ctx.kmer_mapper)
-            e2r, s2r, _ = engine.map_store(st2rc, kmer_mapper=ctx.kmer_mapper)
-            t_map = time.perf_counter() - t0
-            log.info("pair info: index %.1fs, mapping %.1fs", t_idx, t_map)
+            tm["map_s"] = 0.0
+            with span("pair_info_count.map", into=tm, key="map_s", pairs=int(st1.n)):
+                e1, s1, _ = engine.map_store(st1, kmer_mapper=ctx.kmer_mapper)
+                e2r, s2r, _ = engine.map_store(st2rc, kmer_mapper=ctx.kmer_mapper)
+            log.info("pair info: index %.1fs, mapping %.1fs", tm["index_s"], tm["map_s"])
             # convert the RC-mate mapping back to original-read2 orientation:
             # rc(read2) maps at (e, s) => read2 maps at (conj e, L - k_nt...)
             rl2 = np.concatenate([ch.lengths[: ch.n] for ch in st2rc.chunks])
@@ -707,7 +708,7 @@ class PairInfoCount(AssemblyStage):
                 "mapped_left": int((e1 >= 0).sum()), "mapped_right": int(ok2.sum()),
                 "mapped_both": int(((e1 >= 0) & ok2).sum()),
                 "is_median": st.median, "is_mad": st.mad, "is_mean": st.mean,
-                "is_count": st.count, "index_s": t_idx, "map_s": t_map,
+                "is_count": st.count, "index_s": tm["index_s"], "map_s": tm["map_s"],
                 "index_timings": dict(engine.index_timings), "raw_entries": 0,
             }
             RR_STATS.append((ctx.k, self.id, stats))

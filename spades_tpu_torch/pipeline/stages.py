@@ -22,9 +22,10 @@ from typing import Any
 
 log = logging.getLogger("spades_tpu_torch.stages")
 
-# Per-stage wall-time trail (k, stage_id, seconds), appended by
-# StageManager.run — the TIME_TRACE_SCOPE ledger a benchmark's stage
-# breakdown reads.  Callers may clear it between runs.
+# Per-stage wall-time trail (k, stage_id, seconds to 0.01), appended by
+# StageManager.run from the stage's span (`utils/timetracer.py`, on
+# `time.perf_counter`) — the ledger a benchmark's stage breakdown reads.
+# Callers may clear it between runs.
 STAGE_TIMES: list[tuple[int, str, float]] = []
 
 
@@ -265,21 +266,21 @@ class StageManager:
                 prev = self.stages[begin - 1]
                 prev.load(ctx, ctx.saves_dir(prev.id))
 
-        from ..utils.timetracer import trace_scope
+        from ..utils.timetracer import span
 
         for i in range(begin, len(self.stages)):
             stage = self.stages[i]
-            t0 = time.time()
             log.info("== STAGE %s (%s) ==", stage.name, stage.id)
-            with trace_scope(stage.name, stage.id):
+            tm: dict = {}
+            with span(stage.name, stage.id, into=tm, key="s"):
                 stage.run(ctx)
-            dt = time.time() - t0
-            STAGE_TIMES.append((ctx.k, stage.id, round(dt, 2)))
-            log.info("== done %s (%.2fs)", stage.name, dt)
+            STAGE_TIMES.append((ctx.k, stage.id, round(tm["s"], 2)))
+            log.info("== done %s (%.2fs)", stage.name, tm["s"])
             if self.saves_policy != SavesPolicy.NONE:
-                is_last = i == len(self.stages) - 1
-                if self.saves_policy == SavesPolicy.ALL or is_last:
-                    stage.save(ctx, ctx.saves_dir(stage.id))
-                os.makedirs(os.path.dirname(self._checkpoint_file(ctx)), exist_ok=True)
-                with open(self._checkpoint_file(ctx), "w") as fh:
-                    json.dump({"last_stage": stage.id, "time": time.time()}, fh)
+                with span("cli.checkpoint", stage=stage.id):
+                    is_last = i == len(self.stages) - 1
+                    if self.saves_policy == SavesPolicy.ALL or is_last:
+                        stage.save(ctx, ctx.saves_dir(stage.id))
+                    os.makedirs(os.path.dirname(self._checkpoint_file(ctx)), exist_ok=True)
+                    with open(self._checkpoint_file(ctx), "w") as fh:
+                        json.dump({"last_stage": stage.id, "time": time.time()}, fh)

@@ -8,8 +8,12 @@ paths at lowered thresholds are held by `tests/test_torch_rr.py`).  Their
 output files and `run_spades.yaml` must be byte-identical, the GFA but for
 its header line.
 `--num-processes` above 1 without a coordinator must raise a `ValueError`
-naming it, before anything is read or written.
+naming it, before anything is read or written.  `--time-tracing` writes
+the span tree of an assembly and, on its early return, of
+`--only-error-correction`; the stage trail is the stage spans' measurement;
+each `main` starts from an empty recorder.
 """
+import json
 import os
 
 import pytest
@@ -20,7 +24,9 @@ from spades_tpu.pipeline import executors as j_exec
 from spades_tpu.pipeline import main as j_main
 from spades_tpu_torch.pipeline import executors as t_exec
 from spades_tpu_torch.pipeline import main as t_main
+from spades_tpu_torch.pipeline import stages as t_stage_rt
 from spades_tpu_torch.tools import synthetic
+from spades_tpu_torch.utils import timetracer
 from tests.test_torch_pipeline import assert_same_file, one_torch_thread
 
 FILES = ("contigs.fasta", "scaffolds.fasta", "contigs.paths", "scaffolds.paths",
@@ -191,6 +197,95 @@ def test_profile_and_time_trace_are_written(fastq, tmp_path):
                         "-o", out]) == 0
     assert os.path.getsize(os.path.join(out, "profile", "trace.json")) > 0
     assert os.path.getsize(os.path.join(out, "spades_time_trace.json")) > 0
+    # the operator's profiler trace holds the program's spans on its clock
+    with open(os.path.join(out, "profile", "trace.json")) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert {"spades", "cli.parse", "k21", "construction", "construction.condense"} <= names
+
+
+def _span_tree(path):
+    """The spans of a `--time-tracing` file by detail, after checking that
+    every span has an id and a parent (none for the root alone) and lies
+    within its parent, and that the file names its clock and origin."""
+    with open(path) as fh:
+        data = json.load(fh)
+    assert data["otherData"]["clock"] == "time.perf_counter"
+    assert isinstance(data["otherData"]["origin_s"], float) and data["otherData"]["run"]
+    events = data["traceEvents"]
+    by_id = {e["args"]["id"]: e for e in events}
+    assert len(by_id) == len(events)
+    assert [e["args"]["detail"] for e in events if e["args"]["parent"] is None] == ["spades"]
+    by_detail = {}
+    for e in events:
+        by_detail.setdefault(e["args"]["detail"], []).append(e)
+        if e["args"]["parent"] is not None:
+            p = by_id[e["args"]["parent"]]
+            assert p["ts"] <= e["ts"] and e["ts"] + e["dur"] <= p["ts"] + p["dur"] + 2, e
+    return data, by_detail
+
+
+@pytest.fixture(scope="module")
+def traced(fastq, tmp_path_factory):
+    """An assembly, then error correction alone, both under --time-tracing,
+    then an assembly without it, in this process; the stage trail of the
+    first and what the recorder held after each."""
+    base = ["-1", fastq[(1, 1)], "-2", fastq[(1, 2)], "--device", "cpu"]
+    asm, ec, plain = (str(tmp_path_factory.mktemp(n)) for n in ("asm", "ec", "plain"))
+    t_stage_rt.STAGE_TIMES.clear()
+    assert t_main.main(base + ["--only-assembler", "-k", "21", "--time-tracing", "-o", asm]) == 0
+    stage_times = list(t_stage_rt.STAGE_TIMES)
+    held = [timetracer.enabled(), timetracer.events()]
+    assert t_main.main(base + ["--only-error-correction", "--time-tracing", "-o", ec]) == 0
+    held += [timetracer.enabled(), timetracer.events()]
+    assert t_main.main(base + ["--only-assembler", "-k", "21", "--disable-rr", "-o", plain]) == 0
+    held += [timetracer.enabled(), timetracer.events()]
+    return {"asm": asm, "ec": ec, "plain": plain, "stage_times": stage_times, "held": held}
+
+
+def test_time_trace_of_an_assembly(traced):
+    _data, spans = _span_tree(os.path.join(traced["asm"], "spades_time_trace.json"))
+    stage_ids = [s for _k, s, _t in traced["stage_times"]]
+    assert {"spades", "cli.parse", "cli.pack", "k21", "cli.checkpoint", *stage_ids} <= set(spans)
+    assert {"construction.count_host", "construction.merge", "construction.ext_build",
+            "construction.condense", "pair_info_count.index", "map_store"} <= set(spans)
+    assert len(spans["cli.parse"]) == 2
+    assert sum(e["args"]["reads"] for e in spans["cli.parse"]) == spans["cli.pack"][0]["args"][
+        "reads"]
+    (root,) = spans["spades"]
+    for sid in stage_ids:
+        (ev,) = spans[sid]
+        assert ev["args"]["k"] == 21
+        assert spans["k21"][0]["args"]["id"] == ev["args"]["parent"]
+    # the stage trail is the stage spans' measurement, to 0.01 s
+    for _k, sid, sec in traced["stage_times"]:
+        assert abs(spans[sid][0]["dur"] * 1e-6 - sec) <= 0.005 + 1e-6, (sid, sec)
+    cond = spans["construction.condense"][0]["args"]
+    assert cond["unique_kmers"] > 0 and cond["edges"] > 0
+    assert all(e["args"]["b1_launches"] == 0 and e["args"]["maxrss_mib"] > 0
+               for es in spans.values() for e in es)
+
+
+def test_time_trace_of_error_correction_alone(traced):
+    """The trace file is written on the early return of
+    --only-error-correction too."""
+    _data, spans = _span_tree(os.path.join(traced["ec"], "spades_time_trace.json"))
+    assert {"spades", "cli.parse", "error_correction", "cli.ec_write", "hammer.count",
+            "hammer.maps", "hammer.cluster", "hammer.coverage", "hammer.vote"} <= set(spans)
+    ec_id = spans["error_correction"][0]["args"]["id"]
+    assert all(e["args"]["parent"] == ec_id for d, es in spans.items()
+               if d.startswith("hammer.") and d.count(".") == 1 for e in es)
+    assert spans["hammer.count"][0]["args"]["unique_kmers"] > 0
+    assert spans["hammer.cluster"][0]["args"]["clusters"] > 0
+
+
+def test_a_second_main_starts_from_an_empty_recorder(traced):
+    asm, _ = _span_tree(os.path.join(traced["asm"], "spades_time_trace.json"))
+    ec, spans = _span_tree(os.path.join(traced["ec"], "spades_time_trace.json"))
+    assert asm["otherData"]["run"] != ec["otherData"]["run"]
+    assert not {"k21", "construction", "cli.pack"} & set(spans)
+    # after each run the recorder is off and empty; an untraced run records nothing
+    assert traced["held"] == [False, [], False, [], False, []]
+    assert not os.path.exists(os.path.join(traced["plain"], "spades_time_trace.json"))
 
 
 def test_test_dataset_option(tmp_path):

@@ -29,6 +29,13 @@ from tests.test_early_clip import clean_random_dna, mutate, tile_reads
 from tests.test_torch_pipeline import THRESHOLDS, assert_same_graph, one_torch_thread
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own draws, from the session fixture's seed: its sets do
+    not depend on which test files ran before it in the same worker."""
+    return np.random.default_rng(42)
+
+
 def _pair(seqs, k):
     """One index built by the reference, and the port's copy of it."""
     j_index = j_build(j_count(seqs, k + 1))
