@@ -15,6 +15,11 @@ vectorized formulation of `spades_tpu.ops.condense` runs:
    by pointer doubling (Wyllie) — in PyTorch on the run's device;
 4. maximal chains are the condensed edges: materialize their sequences, pair
    each with its reverse-complement conjugate, emit junction vertices.
+
+`condense_device` runs the same formulation on the card from the device
+index's inverse indices: every (k+1)-mer row places its arc and its
+reverse-complement arc by arithmetic, so no step looks a k-mer up, and only
+the graph's arrays cross to the host.
 """
 from __future__ import annotations
 
@@ -24,8 +29,8 @@ import torch
 from .. import resolve_device
 from ..core import kmers as K
 from ..graph.graph import CondensedGraph
-from .count import KmerCounts, searchsorted_rows
-from .extension import POPCOUNT4, ExtensionIndex, canonicalize, mask_tail
+from .count import KmerCounts, _words_of_keys, searchsorted_rows
+from .extension import POPCOUNT4, DeviceExtensionIndex, ExtensionIndex, canonicalize, mask_tail
 
 # 4-bit mask reversal: MASK_REV4[m] has bit (3-c) set iff m has bit c.
 MASK_REV4 = np.array(
@@ -56,40 +61,56 @@ def _doubling_rounds(n: int) -> int:
     return max(1, int(np.ceil(np.log2(max(n, 2)))) + 1)
 
 
-def _rank_chains_device(nxt: np.ndarray, prv: np.ndarray, rounds: int, device):
+def _rank_chains(nxt: torch.Tensor, prv: torch.Tensor, rounds: int):
     """Cycle detection, a cycle cut before each cycle's minimum arc, and
-    Wyllie list ranking, by pointer doubling on `device`.
+    Wyllie list ranking, by pointer doubling on the tensors' device.
 
-    nxt/prv: (A,) int64 successor / predecessor arc, -1 at chain ends.
-    Returns (pos, head) int64 numpy: each arc's rank in its chain and the
-    chain's first arc."""
-    nxt = torch.from_numpy(nxt).to(device)
-    prv = torch.from_numpy(prv).to(device)
+    nxt/prv: (A,) successor / predecessor arc (int32 or int64), -1 at chain
+    ends.  Returns (pos, head) in their dtype: each arc's rank in its chain
+    and the chain's first arc."""
     A = nxt.shape[0]
-    idx = torch.arange(A, dtype=torch.int64, device=device)
+    idx = torch.arange(A, dtype=nxt.dtype, device=nxt.device)
     # done[a] <=> walking prv from a terminates (a is not on a cycle)
     parent = torch.where(prv >= 0, prv, idx)
     done = prv < 0
     for _ in range(rounds):
-        done = done | done[parent]
-        parent = parent[parent]
+        done = done | done.index_select(0, parent)
+        parent = parent.index_select(0, parent)
     in_cycle = ~done
-    m = idx
-    q = torch.where(nxt >= 0, nxt, idx)
-    for _ in range(rounds):
-        m = torch.minimum(m, m[q])
-        q = q[q]
-    # cut each cycle before its minimum arc
-    head_mask = in_cycle & (m == idx)
-    nxt = nxt.clone()
-    nxt[prv[head_mask]] = -1
-    prv = torch.where(head_mask, -1, prv)
+    del parent, done
+    if bool(in_cycle.any()):
+        m = idx
+        q = torch.where(nxt >= 0, nxt, idx)
+        for _ in range(rounds):
+            m = torch.minimum(m, m.index_select(0, q))
+            q = q.index_select(0, q)
+        # cut each cycle before its minimum arc
+        prv = torch.where(in_cycle & (m == idx), -1, prv)
+        del m, q
+    del in_cycle
     parent = torch.where(prv >= 0, prv, idx)
-    pos = (prv >= 0).to(torch.int64)
+    pos = (prv >= 0).to(nxt.dtype)
     for _ in range(rounds):
-        pos = pos + pos[parent]
-        parent = parent[parent]
-    return pos.cpu().numpy(), parent.cpu().numpy()
+        pos = pos + pos.index_select(0, parent)
+        parent = parent.index_select(0, parent)
+    return pos, parent
+
+
+def _rank_chains_device(nxt: np.ndarray, prv: np.ndarray, rounds: int, device):
+    """`_rank_chains` of host (A,) int64 arrays on `device`; returns
+    (pos, head) int64 numpy."""
+    pos, head = _rank_chains(torch.from_numpy(nxt).to(device),
+                             torch.from_numpy(prv).to(device), rounds)
+    return pos.cpu().numpy(), head.cpu().numpy()
+
+
+def _empty_graph(k: int) -> CondensedGraph:
+    """The graph of an index without arcs."""
+    z = np.zeros(0, np.int64)
+    return CondensedGraph(k=k, e_start=z, e_end=z.copy(), e_conj=z.copy(), e_off=z.copy(),
+                          e_len=z.copy(), e_cov=np.zeros(0, np.float64),
+                          alive=np.zeros(0, bool), seq_pool=np.zeros(0, np.uint8),
+                          v_conj=z.copy())
 
 
 def condense(index: ExtensionIndex, p1: KmerCounts | None = None,
@@ -159,14 +180,7 @@ def condense(index: ExtensionIndex, p1: KmerCounts | None = None,
     node_arc_start = np.concatenate([[0], np.cumsum(node_outdeg)]).astype(np.int64)
 
     if A == 0:
-        return CondensedGraph(
-            k=k,
-            e_start=np.zeros(0, np.int64), e_end=np.zeros(0, np.int64),
-            e_conj=np.zeros(0, np.int64), e_off=np.zeros(0, np.int64),
-            e_len=np.zeros(0, np.int64), e_cov=np.zeros(0, np.float64),
-            alive=np.zeros(0, bool), seq_pool=np.zeros(0, np.uint8),
-            v_conj=np.zeros(0, np.int64),
-        )
+        return _empty_graph(k)
 
     # destination nodes
     succ_words = _shift_in_base(node_words[arc_src], arc_nt, k)
@@ -249,4 +263,137 @@ def condense(index: ExtensionIndex, p1: KmerCounts | None = None,
         e_off=e_off, e_len=e_len, e_cov=e_cov,
         alive=np.ones(E, bool), seq_pool=seq_pool,
         v_conj=v_conj,
+    )
+
+
+def condense_device(index: DeviceExtensionIndex, counts=None) -> CondensedGraph:
+    """The condensed graph of a device extension index, on its device: the
+    graph `stbr_condense` makes, array for array.
+
+    counts: the (k+1)-mer table's counts (host array or tensor, one per row
+    of the index's inverse indices) for the edges' coverage sums; None
+    counts each arc once.  Arcs are numbered by (oriented node, base) as in
+    `condense`; each row gives its arc src -s[k]-> dst, with src and dst
+    its prefix's and suffix's oriented nodes, and the reverse-complement
+    arc dst^1 -comp(s[0])-> src^1 (the same arc for a palindrome)."""
+    dev = index.kmers.device
+    k = index.k
+    U = index.num_kmers
+    P = int(index.pref_idx.shape[0])
+    it = torch.int32 if 2 * max(U, P) + 1 < 2**31 else torch.int64
+    rev4 = torch.as_tensor(MASK_REV4, device=dev)
+    pop4 = torch.as_tensor(POPCOUNT4, device=dev)
+
+    # ---- oriented nodes: 2i canonical row i, 2i+1 its reverse complement
+    om = torch.stack([index.out_mask, rev4[index.in_mask.int()]], 1).reshape(-1)
+    im = torch.stack([index.in_mask, rev4[index.out_mask.int()]], 1).reshape(-1)
+    outdeg = pop4[om.int()]
+    unbr = (outdeg == 1) & (pop4[im.int()] == 1)
+    del im
+    nas = torch.zeros(2 * U + 1, dtype=it, device=dev)
+    nas[1:] = torch.cumsum(outdeg, 0, dtype=it)
+    del outdeg
+    A = int(nas[-1])
+    if A == 0:
+        return _empty_graph(k)
+
+    def row_arcs(rows=None):
+        """(forward arc, rc arc, src node, dst node) of the given rows (all
+        when None), with the two arcs' bases."""
+        def pick(t):
+            return t if rows is None else t.index_select(0, rows)
+        src = 2 * pick(index.pref_idx).to(it) + pick(index.pref_rc)
+        dst = 2 * pick(index.suf_idx).to(it) + pick(index.suf_rc)
+        nt1 = pick(index.last).to(it)
+        nt2 = 3 - pick(index.first).to(it)
+        fwd = nas[src] + pop4[om[src].to(it) & ((1 << nt1) - 1)]
+        rca = nas[dst ^ 1] + pop4[om[dst ^ 1].to(it) & ((1 << nt2) - 1)]
+        return fwd, rca, src, dst, nt1, nt2
+
+    # ---- arcs: each row places its one or two, and their chain links
+    fwd, rca, src, dst, nt1, nt2 = row_arcs()
+    n_pal = int((fwd == rca).sum())
+    if 2 * P - n_pal != A:
+        raise ValueError("extension index inconsistent: masks and rows disagree")
+    rows = torch.arange(P, dtype=it, device=dev)
+    arc_row = torch.empty(A, dtype=it, device=dev)
+    arc_row[fwd] = rows
+    arc_row[rca] = rows
+    arc_nt = torch.empty(A, dtype=torch.uint8, device=dev)
+    arc_nt[fwd] = nt1.to(torch.uint8)
+    arc_nt[rca] = nt2.to(torch.uint8)
+    # the successor of an arc into an unbranching node is that node's only arc
+    nxt = torch.empty(A, dtype=it, device=dev)
+    nxt[fwd] = torch.where(unbr[dst], nas[dst], -1)
+    nxt[rca] = torch.where(unbr[src ^ 1], nas[src ^ 1], -1)
+    del fwd, rca, src, dst, nt1, nt2, rows, unbr
+    linked = nxt >= 0
+    prv = torch.full((A,), -1, dtype=it, device=dev)
+    prv[nxt[linked]] = torch.nonzero(linked).squeeze(1).to(it)
+    del linked
+
+    pos, head = _rank_chains(nxt, prv, _doubling_rounds(A))
+    del prv
+
+    # ---- edges: chains in ascending head-arc order
+    is_head = pos == 0
+    heads = torch.nonzero(is_head).squeeze(1)
+    E = int(heads.shape[0])
+    edge_of_arc = (torch.cumsum(is_head, 0, dtype=it) - 1).index_select(0, head)
+    del is_head, head
+    # a chain's tail: its arc ends the list, or leads to a cut cycle's head
+    is_tail = (nxt < 0) | (pos.index_select(0, nxt.clamp(min=0)) == 0)
+    tails = torch.nonzero(is_tail).squeeze(1)
+    del is_tail, nxt
+    tail_edge = edge_of_arc[tails].long()
+    tail_arc = torch.empty(E, dtype=torch.int64, device=dev)
+    tail_arc[tail_edge] = tails
+    e_len = torch.empty(E, dtype=torch.int64, device=dev)
+    e_len[tail_edge] = pos[tails].long() + 1 + k
+    e_off = torch.cumsum(e_len, 0) - e_len
+    if counts is None:
+        e_cov = (e_len - k).to(torch.float64)
+    else:
+        cnt = torch.as_tensor(counts, device=dev).to(torch.int64)
+        e_cov = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
+            0, edge_of_arc, cnt.index_select(0, arc_row)).to(torch.float64)
+        del cnt
+
+    # ---- sequences: the head's source k-mer, then one base per arc
+    pool = torch.empty(int(e_off[-1] + e_len[-1]), dtype=torch.uint8, device=dev)
+    pool[e_off.index_select(0, edge_of_arc) + k + pos] = arc_nt
+    del arc_nt, pos
+    start_node = torch.searchsorted(nas, heads.to(it), right=True) - 1
+    rc = (start_node & 1).bool()
+    words = _words_of_keys(index.kmers.index_select(1, start_node >> 1), K.kmer_words(k))
+    for j in range(k):
+        fb = (words[:, j // 16] >> (30 - 2 * (j % 16))) & 3
+        jr = k - 1 - j
+        rb = 3 - ((words[:, jr // 16] >> (30 - 2 * (jr % 16))) & 3)
+        pool[e_off + j] = torch.where(rc, rb, fb).to(torch.uint8)
+    del words, rc
+
+    # ---- endpoints and conjugates, from the tail arc's row
+    fwd, rca, src, dst, _, _ = row_arcs(arc_row.index_select(0, tail_arc))
+    is_fwd = fwd == tail_arc
+    end_node = torch.where(is_fwd, dst, src ^ 1).long()
+    e_conj = edge_of_arc.index_select(0, torch.where(is_fwd, rca, fwd)).long()
+    if not torch.equal(e_conj[e_conj], torch.arange(E, device=dev)):
+        raise ValueError("edge conjugation is not an involution")
+
+    # ---- vertices: endpoint nodes and their conjugates, in node order
+    ends = torch.cat([start_node, end_node])
+    vnodes = torch.unique(torch.cat([ends, ends ^ 1]))
+
+    def host(t, dtype):
+        return t.cpu().numpy().astype(dtype, copy=False)
+
+    return CondensedGraph(
+        k=k,
+        e_start=host(torch.searchsorted(vnodes, start_node), np.int64),
+        e_end=host(torch.searchsorted(vnodes, end_node), np.int64),
+        e_conj=host(e_conj, np.int64), e_off=host(e_off, np.int64),
+        e_len=host(e_len, np.int64), e_cov=host(e_cov, np.float64),
+        alive=np.ones(E, bool), seq_pool=host(pool, np.uint8),
+        v_conj=host(torch.searchsorted(vnodes, vnodes ^ 1), np.int64),
     )

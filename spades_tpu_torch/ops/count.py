@@ -40,12 +40,12 @@ def unpack_batch_device(pc: torch.Tensor, pn: torch.Tensor, L: int):
     return codes, n_mask
 
 
-def _lex_order(keys: torch.Tensor) -> torch.Tensor:
-    """Permutation that sorts the columns of (nK, N) key planes
-    lexicographically: one sort for one plane, else stable sorts from the
-    least significant plane up."""
+def _lex_order(keys) -> torch.Tensor:
+    """Permutation that sorts the columns of (nK, N) key planes (a tensor or
+    a list of nK planes) lexicographically: one sort for one plane, else
+    stable sorts from the least significant plane up."""
     order = torch.sort(keys[-1], stable=True).indices
-    for j in range(keys.shape[0] - 2, -1, -1):
+    for j in range(len(keys) - 2, -1, -1):
         order = order[torch.sort(keys[j][order], stable=True).indices]
     return order
 

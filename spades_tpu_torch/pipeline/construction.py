@@ -5,7 +5,8 @@ Mirrors SPAdes' Construction composite stage
 ExtensionIndexBuilder -> GraphCondenser -> coverage fill) as a function
 pipeline over the counting engine, on one device or, under a process group,
 with the sharded count of `parallel/sharded_count.py` (ConstructionMPI's
-split of the reads, `hpcspades/mpi/stages/construction_mpi.cpp`).
+split of the reads, `hpcspades/mpi/stages/construction_mpi.cpp`).  On a
+CUDA card the extension index and the condensation run on the card too.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from ..ops import count as _count
 from ..ops import early_clip as _early
 from ..ops import extension as _ext
 from ..parallel.distributed import EXCHANGED, resolve_group
+from ..utils import timetracer
 from ..utils.timetracer import span
 
 
@@ -28,12 +30,30 @@ from ..utils.timetracer import span
 class ConstructionResult:
     graph: CondensedGraph
     p1_counts: _count.KmerCounts       # canonical (k+1)-mer counts
-    index: _ext.ExtensionIndex
+    # the extension index: a host ExtensionIndex, or the device index until
+    # `index` is first read
+    _index: _ext.ExtensionIndex | _ext.DeviceExtensionIndex
     # Per-phase wall seconds: count_reads' keys (device_s, device_first_s,
     # pull_s, merge_s, host_s, n_batches) plus extra_count_s (two-pass
     # structure counting), filter_s, ext_build_s, early_clip_s (when a
-    # clipper ran) and condense_s.
+    # clipper ran) and condense_s; ext_device is 1 where the index and the
+    # condensation ran on the card, else 0.
     timings: dict = field(default_factory=dict)
+
+    @property
+    def index(self) -> _ext.ExtensionIndex:
+        """The extension index on the host (a device index is pulled here,
+        at the first read)."""
+        if isinstance(self._index, _ext.DeviceExtensionIndex):
+            self._index = self._index.to_host()
+        return self._index
+
+
+def _on_card(dev, early_clip: bool) -> bool:
+    """Whether the extension index and the condensation run on the device:
+    on a CUDA card, unless an early clipper edits the host index between
+    the two."""
+    return dev.type == "cuda" and not early_clip
 
 
 def _count_sharded(batches, k1: int, group, dev, tm: dict) -> _count.KmerCounts:
@@ -70,6 +90,11 @@ def construct_graph(
     structure but no coverage.  read_store: a `ReadStore` of the same reads,
     packed once for the whole run; when given, `sequences` is not read.
     device: where counting runs (None: the CUDA card; see `resolve_device`).
+    On a CUDA card the table's key planes go to the card once and the
+    extension index (`build_extension_index_device`) and the condensation
+    (`condense_device`) run there, handing only the graph back; on the CPU
+    and under an early clipper the host index and the native condensation
+    run (`timings["ext_device"]` says which).
 
     early_tip_clip / early_at_clip: run the pre-condensation clippers on the
     extension index (SPAdes' construction.cpp:446-450: the EarlyATClipper
@@ -124,9 +149,17 @@ def construct_graph(
             rows = _count.searchsorted_rows(structure.words, p1.words)
             cov[rows] = p1.counts
             p1 = _count.KmerCounts(k=p1.k, words=structure.words, counts=cov)
-    with span(".ext_build", into=tm, key="ext_build_s"):
-        index = _ext.build_extension_index(p1)
-    if early_at_clip or early_tip_clip:
+    early_clip = early_at_clip or early_tip_clip
+    path = "device" if _on_card(dev, early_clip) else "host"
+    tm["ext_device"] = int(path == "device")
+    with span(".ext_build", into=tm, key="ext_build_s", path=path) as s:
+        if path == "device":
+            index = _ext.build_extension_index_device(_ext.keys_to_device(p1.words, dev), k)
+        else:
+            index = _ext.build_extension_index(p1)
+        sizes = _index_sizes(index)
+        s.set(**sizes)
+    if early_clip:
         with span(".early_clip", into=tm, key="early_clip_s"):
             if early_at_clip:
                 _early.remove_at_edges(index)
@@ -136,7 +169,19 @@ def construct_graph(
                 if bound is None:
                     bound = (read_length - k) if read_length and read_length > k else k
                 _early.clip_tips_early(index, bound)
-    with span(".condense", into=tm, key="condense_s") as s:
-        graph = _condense.condense(index, p1, device=dev)
+        sizes = _index_sizes(index)
+    with span(".condense", into=tm, key="condense_s", path=path, **sizes) as s:
+        if path == "device":
+            graph = _condense.condense_device(index, p1.counts)
+        else:
+            graph = _condense.condense(index, p1, device=dev)
         s.set(unique_kmers=int(p1.num_unique), edges=int(graph.num_edges))
-    return ConstructionResult(graph=graph, p1_counts=p1, index=index, timings=tm)
+    return ConstructionResult(graph=graph, p1_counts=p1, _index=index, timings=tm)
+
+
+def _index_sizes(index) -> dict:
+    """The span counters of an index, while tracing is on: its k-mers (U)
+    and its arcs (A)."""
+    if not timetracer.enabled():
+        return {}
+    return {"kmers": index.num_kmers, "arcs": index.num_arcs}

@@ -29,10 +29,12 @@ from spades_tpu.tools import gbuilder as j_gbuilder
 import spades_tpu_torch
 from spades_tpu_torch import convert, native
 from spades_tpu_torch.core.reads import ReadStore
+from spades_tpu_torch.core import kmers as _kmers
 from spades_tpu_torch.io import contigs as t_contigs
 from spades_tpu_torch.io import fastx as t_fastx
 from spades_tpu_torch.io import gfa as t_gfa
 from spades_tpu_torch.ops import condense as t_condense
+from spades_tpu_torch.ops import count as t_count
 from spades_tpu_torch.ops import extension as t_ext
 from spades_tpu_torch.pipeline.construction import construct_graph as t_construct
 from spades_tpu_torch.tools import gbuilder as t_gbuilder
@@ -290,3 +292,146 @@ def test_chip_smoke_alone_exits_nonzero(tmp_path):
                          env={**os.environ, "PYTHONPATH": ""})
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+# -- the device pair: build_extension_index_device + condense_device ---------
+
+INDEX_FIELDS = ("kmers", "in_mask", "out_mask", "pref_idx", "pref_rc", "suf_idx", "suf_rc")
+
+
+def _device_pair_matches(p1, k):
+    """The device pair under CPU torch on the port's table `p1` against
+    `stbr_build_ext` / `stbr_condense` and the JAX package, array for array
+    (the inverse indices included)."""
+    dix = t_ext.build_extension_index_device(t_ext.keys_to_device(p1.words, "cpu"), k)
+    got = dix.to_host()
+    nat = native.build_ext_native(p1.words, k)
+    assert nat is not None
+    jp1 = JC.KmerCounts(k=p1.k, words=p1.words, counts=p1.counts)
+    jidx = j_ext.build_extension_index(jp1)
+    for f, want in zip(INDEX_FIELDS, nat):
+        a = getattr(got, f)
+        assert a.dtype == want.dtype and np.array_equal(a, want), f
+        assert np.array_equal(a, getattr(jidx, f)), f
+    assert dix.num_arcs == got.num_arcs
+    g = t_condense.condense_device(dix, p1.counts)
+    host_idx = t_ext.ExtensionIndex(k=k, **dict(zip(INDEX_FIELDS, nat)))
+    _same_graph(g, t_condense.condense(host_idx, p1, device="cpu"))   # stbr_condense
+    _same_graph(g, j_condense.condense(jidx, jp1))
+    # without counts every arc counts once, as in the vectorized path
+    _same_graph(t_condense.condense_device(dix, None),
+                j_condense.condense(j_ext.ExtensionIndex(
+                    k=k, kmers=jidx.kmers, in_mask=jidx.in_mask, out_mask=jidx.out_mask), None))
+    return g
+
+
+@pytest.fixture(params=["whole", "sliced"])
+def slicing(request, monkeypatch):
+    """The table cut into row slices and the contributions sorted in
+    top-byte ranges, as on a large table, or both in one piece."""
+    if request.param == "sliced":
+        monkeypatch.setattr(t_ext, "_SLICE_ROWS", 700)
+        monkeypatch.setattr(t_ext, "_SORT_ROWS", 2000)
+    return request.param
+
+
+@pytest.mark.parametrize("k", [21, 33, 55, 77])
+@pytest.mark.parametrize("table", ["reads", "structure", "min_count_2"])
+def test_device_pair_matches_native_and_jax(device_path, slicing, k, table):
+    reads, genome = _dataset(200 + k)
+    if table == "reads":
+        p1 = t_construct(reads, k, batch_size=256, device="cpu").p1_counts
+    elif table == "structure":
+        # prev-K contigs and a novel sequence: rows of count 0
+        novel = "".join("ACGT"[i] for i in np.random.default_rng(k).integers(0, 4, 300))
+        p1 = t_construct(reads, k, extra_sequences=[genome[100:2600], novel],
+                         batch_size=256, device="cpu").p1_counts
+        assert (p1.counts == 0).any()
+    else:
+        p1 = t_construct(reads, k, min_count=2, extra_sequences=[genome[:1200]],
+                         batch_size=256, device="cpu").p1_counts
+    _device_pair_matches(p1, k)
+
+
+def _table(seqs, k):
+    return t_count.count_sequences(seqs, k + 1, device="cpu")
+
+
+def _circle(n, seed, k):
+    s = "".join("ACGT"[i] for i in np.random.default_rng(seed).integers(0, 4, n))
+    return s + s[:k]
+
+
+@pytest.mark.parametrize("k", [21, 33])
+@pytest.mark.parametrize("case", ["palindromes", "cycle", "single", "empty"])
+def test_device_pair_edge_tables(slicing, k, case):
+    rng = np.random.default_rng(k)
+    if case == "palindromes":
+        # (k+1)-mers equal to their reverse complements, inside reads and alone
+        seqs = []
+        for _ in range(12):
+            half = "".join("ACGT"[i] for i in rng.integers(0, 4, (k + 1) // 2))
+            rc = half[::-1].translate(str.maketrans("ACGT", "TGCA"))
+            flank = "".join("ACGT"[i] for i in rng.integers(0, 4, 30))
+            seqs += [flank + half + rc + flank[::-1], half + rc]
+        p1 = _table(seqs, k)
+        pal = np.all(_kmers.revcomp_words(p1.words, k + 1) == p1.words, axis=1)
+        assert pal.sum() >= 12
+    elif case == "cycle":
+        # a circular sequence with no branch: one perfect cycle and its conjugate
+        p1 = _table([_circle(500, k, k)], k)
+    elif case == "single":
+        p1 = _table(["".join("ACGT"[i] for i in rng.integers(0, 4, k + 1))], k)
+        assert p1.num_unique == 1
+    else:
+        p1 = t_count.KmerCounts(k=k + 1, words=np.zeros((0, _kmers.kmer_words(k + 1)), np.uint32),
+                                counts=np.zeros(0, np.int64))
+    if case == "empty":
+        dix = t_ext.build_extension_index_device(t_ext.keys_to_device(p1.words, "cpu"), k)
+        assert dix.num_kmers == 0 and dix.num_arcs == 0
+        g = t_condense.condense_device(dix, p1.counts)
+        _same_graph(g, j_condense.condense(j_ext.build_extension_index(
+            JC.KmerCounts(k=k + 1, words=p1.words, counts=p1.counts)), None))
+        assert g.e_len.shape == (0,)
+        return
+    g = _device_pair_matches(p1, k)
+    if case == "cycle":
+        assert g.e_len.shape[0] == 2 and np.all(g.e_len == 500 + k)
+        assert np.all(g.e_start == g.e_end)
+    if case == "single":
+        assert g.e_len.tolist() == [k + 1, k + 1]
+
+
+def test_construct_graph_device_path_on_cpu(device_path, monkeypatch, tmp_path):
+    """`construct_graph` with the device pair taken on the CPU: the graph
+    and the index equal the host path's, the index is pulled only when read,
+    and the spans and the phase trail say which path ran."""
+    from spades_tpu_torch.pipeline import construction as t_constr
+    from spades_tpu_torch.utils import timetracer
+
+    reads, genome = _dataset(31)
+    extra = [genome[:1500]]
+    host = t_construct(reads, 33, extra_sequences=extra, batch_size=256, device="cpu")
+    assert host.timings["ext_device"] == 0
+    monkeypatch.setattr(t_constr, "_on_card", lambda dev, early_clip: not early_clip)
+    timetracer.enable()
+    try:
+        got = t_construct(reads, 33, extra_sequences=extra, batch_size=256, device="cpu")
+        clipped = t_construct(reads, 33, early_tip_clip=True, read_length=100,
+                              batch_size=256, device="cpu")
+        events = timetracer.events()
+    finally:
+        timetracer.disable()
+    assert got.timings["ext_device"] == 1 and clipped.timings["ext_device"] == 0
+    _same_graph(got.graph, host.graph)
+    assert isinstance(got._index, t_ext.DeviceExtensionIndex)
+    for f in INDEX_FIELDS:
+        assert np.array_equal(getattr(got.index, f), getattr(host.index, f)), f
+    assert isinstance(got._index, t_ext.ExtensionIndex)
+    steps = [e["args"] for e in events
+             if e["name"] in ("construction.ext_build", "construction.condense", "ext_build",
+                              "condense")]
+    assert [a["path"] for a in steps] == ["device", "device", "host", "host"]
+    assert steps[0]["kmers"] == steps[1]["kmers"] == host.index.num_kmers
+    assert steps[0]["arcs"] == steps[1]["arcs"] == host.index.num_arcs > 0
+    assert all("kmers" in a and "arcs" in a for a in steps[2:])

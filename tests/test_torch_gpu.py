@@ -127,6 +127,47 @@ def test_construct_graph_cuda_matches_cpu(cuda, monkeypatch, k):
         assert np.array_equal(getattr(got.graph, f), getattr(ref.graph, f)), f
 
 
+def test_construct_graph_device_pair_over_the_k_ladder_matches_cpu(cuda, monkeypatch):
+    """An isolate-shaped sample at K = 21, 33, 55 and 77, each K with the
+    previous K's unitigs as prev-K contigs: the extension index and the
+    condensation on the card (`build_extension_index_device`,
+    `condense_device`) against the CPU path (native), graph and index array
+    for array, and the spans say where each ran."""
+    from spades_tpu_torch.io.contigs import extract_contigs
+    from spades_tpu_torch.tools import synthetic
+    from spades_tpu_torch.utils import timetracer
+
+    monkeypatch.setenv("SPADES_HOST_COUNT_WINDOWS", "1")
+    _genome, r1, r2 = synthetic.make_e2e_dataset(60_000, 30, 150, 0.003, seed=77,
+                                                 insert_mean=400, insert_sd=30)
+    store = ReadStore.build(list(r1) + list(r2), chunk_reads=2048)
+    extra: list[str] = []
+    paths = []
+    timetracer.enable()
+    try:
+        for k in (21, 33, 55, 77):
+            ref = construct_graph(None, k, read_store=store, extra_sequences=extra,
+                                  device="cpu")
+            got = construct_graph(None, k, read_store=store, extra_sequences=extra,
+                                  device=cuda)
+            assert (got.timings["ext_device"], ref.timings["ext_device"]) == (1, 0)
+            for f in GRAPH_FIELDS:
+                assert np.array_equal(getattr(got.graph, f), getattr(ref.graph, f)), (k, f)
+            for f in ("kmers", "in_mask", "out_mask", "pref_idx", "pref_rc", "suf_idx",
+                      "suf_rc"):
+                assert np.array_equal(getattr(got.index, f), getattr(ref.index, f)), (k, f)
+            extra = [c.seq for c in extract_contigs(ref.graph, 2 * k)]
+            assert extra
+        events = timetracer.events()
+    finally:
+        timetracer.disable()
+    for e in events:
+        if e["name"] in ("ext_build", "condense"):
+            paths.append(e["args"]["path"])
+            assert e["args"]["kmers"] > 0 and e["args"]["arcs"] > 0
+    assert paths == ["host", "host", "device", "device"] * 4
+
+
 def test_condense_ranking_on_cuda(cuda):
     reads, _ = _reads(7)
     p1 = C.count_sequences(reads, 22, device="cpu")
