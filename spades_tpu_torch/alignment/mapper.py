@@ -197,7 +197,7 @@ class MappingEngine:
 
         Device path for large stores (same SPADES_DEVICE_MAP_READS threshold
         as `map_read_batch`); with a non-empty kmer_mapper the unmapped
-        residue re-runs on the host path, which applies the projection."""
+        residue re-runs with the projection applied (`_map_residue`)."""
         use_device = force_device or store.n >= _map_reads_threshold()
         with span("map_store", reads=int(store.n), device=bool(use_device)) as sp:
             edge = np.full(store.n, -1, np.int64)
@@ -223,21 +223,18 @@ class MappingEngine:
                     # The projection residue only recovers reads whose EVERY anchor
                     # was glued away.  When the residue is a sliver (<1%) on a big
                     # store, the recoveries cannot move insert-size medians or pair
-                    # weights, while the host pass would build the full host edge
-                    # index just for them — skip and say so.
+                    # weights — skip and say so.
                     if miss.size and store.n >= 100_000 and miss.size < store.n // 100:
                         log.info("skipping kmer-mapper residue pass (%d/%d unmapped, <1%%)",
                                  miss.size, store.n)
                         miss = np.zeros(0, np.int64)
                     if miss.size:
-                        seqs = self._gather_sequences(store, miss)
-                        sub = map_read_batch(self.index, self.g, seqs,
-                                             kmer_mapper=kmer_mapper, _force_host=True)
-                        for i, m in zip(miss, sub):
-                            if m is not None:
-                                edge[i], start[i], votes[i] = m.edge, m.start_offset, m.n_hits
+                        e, s, v = self._map_residue(self._gather_sequences(store, miss),
+                                                    kmer_mapper)
+                        got = e >= 0
+                        edge[miss[got]], start[miss[got]], votes[miss[got]] = e[got], s[got], v[got]
                         stats["rerun"] = int(miss.size)
-                        stats["recovered"] = int(sum(m is not None for m in sub))
+                        stats["recovered"] = int(got.sum())
                     rs.set(rerun=stats["rerun"], recovered=stats["recovered"])
             RESIDUE_STATS.append(stats)
             sp.set(unmapped=stats["unmapped"], rerun=stats["rerun"], recovered=stats["recovered"])
@@ -299,6 +296,43 @@ class MappingEngine:
         s = np.array([m.start_offset if m else 0 for m in ms], np.int64)
         v = np.array([m.n_hits if m else 0 for m in ms], np.int64)
         return e, s, v
+
+    def _map_residue(self, seqs, kmer_mapper):
+        """The kmer-mapper residue pass: `map_read_batch`'s host path, with
+        the lookup and the vote in the engine's device index.  Each read's
+        canonical k-windows are projected through the kmer-mapper on the
+        host, then `_map_shard_core` looks them up and takes the dominant
+        (edge, start) vote, ties to the first in (edge, start) order as the
+        host vote does.  No host index is built.  Reads go in slices of
+        SPADES_MAP_SUBCHUNK, as the device path's do.  Returns (edge, start,
+        votes) int64 arrays, edge -1 where a read did not map."""
+        from ..parallel.sharded_mapping import _map_shard_core
+
+        sub = int(os.environ.get("SPADES_MAP_SUBCHUNK", 131072))
+        k, n = self._k, len(seqs)
+        edge, start, votes = np.full(n, -1, np.int64), np.zeros(n, np.int64), np.zeros(n, np.int64)
+        for a in range(0, n, sub):
+            part = seqs[a: a + sub]
+            L = max(len(c) for c in part)
+            if L < k:
+                continue
+            codes = np.full((len(part), L), dna.NCODE, np.uint8)
+            for i, c in enumerate(part):
+                codes[i, : len(c)] = c
+            wins = np.lib.stride_tricks.sliding_window_view(codes, k, axis=1)
+            valid = np.lib.stride_tricks.sliding_window_view(codes < 4, k, axis=1).all(axis=2)
+            canon, read_rc = canonicalize(K.pack(np.where(wins >= 4, 0, wins).reshape(-1, k)), k)
+            if kmer_mapper is not None and kmer_mapper.k == k:
+                ok = valid.reshape(-1)
+                canon[ok] = kmer_mapper.substitute(canon[ok])
+            dev = self.device
+            keys = torch.from_numpy(np.ascontiguousarray(K.words_to_keys(canon).T)).to(dev)
+            out = _map_shard_core(keys, torch.from_numpy(valid).to(dev),
+                                  torch.from_numpy(read_rc.reshape(valid.shape)).to(dev),
+                                  *self._device_index(), k=k)
+            for dst, t in zip((edge, start, votes), out):
+                dst[a: a + len(part)] = t.cpu().numpy()
+        return edge, start, votes
 
     @staticmethod
     def _gather_sequences(store, idxs):

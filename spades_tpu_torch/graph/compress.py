@@ -30,10 +30,17 @@ def _ragged_copy(dst, dst_starts, src, src_starts, lens):
 
 def compress(g: CondensedGraph) -> CondensedGraph:
     """Merge edge chains through unbranching vertices; drops dead edges."""
+    return compress_tracked(g)[0]
+
+
+def compress_tracked(g: CondensedGraph) -> tuple[CondensedGraph, np.ndarray, np.ndarray]:
+    """`compress`, and for each new edge the old edge its chain starts with
+    and how many old edges it merges: (graph, heads (E,), n_arcs (E,))."""
     k = g.k
     ids = g.alive_edge_ids()
     A = ids.shape[0]
     if A == 0:
+        none = np.zeros(0, np.int64)
         return CondensedGraph(
             k=k,
             e_start=np.zeros(0, np.int64), e_end=np.zeros(0, np.int64),
@@ -41,7 +48,7 @@ def compress(g: CondensedGraph) -> CondensedGraph:
             e_len=np.zeros(0, np.int64), e_cov=np.zeros(0, np.float64),
             alive=np.zeros(0, bool), seq_pool=np.zeros(0, np.uint8),
             v_conj=g.v_conj.copy(),
-        )
+        ), none, none
     # dense arc ids for alive edges
     old2arc = -np.ones(g.alive.shape[0], np.int64)
     old2arc[ids] = np.arange(A)
@@ -155,4 +162,4 @@ def compress(g: CondensedGraph) -> CondensedGraph:
         e_off=e_off, e_len=e_len, e_cov=e_cov,
         alive=np.ones(E, bool), seq_pool=seq_pool,
         v_conj=g.v_conj.copy(),
-    )
+    ), ids[uheads], n_arcs

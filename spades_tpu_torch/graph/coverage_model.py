@@ -108,24 +108,81 @@ def _estep(x: np.ndarray, p: float, n: int) -> np.ndarray:
     return np.where(np.isfinite(z), z, 1.0)
 
 
-def _em_loglike(x: np.ndarray, cov: np.ndarray, z: np.ndarray) -> float:
-    """Weighted complete-data log-likelihood (CovModelLogLikeEM :100-146)."""
-    zp, shape, u, sd, scale, shape2 = x
-    if (
-        zp <= 1 or shape <= 0 or sd <= 0 or u <= 0 or scale <= 0
-        or not np.all(np.isfinite(x))
-    ):
-        return -np.inf
+# |a| from which scipy's erf(a) is +-1.0 exactly (it is from 5.9216 on)
+_ERF_SATURATED = 6.0
+_SQRT_2PI = np.sqrt(2.0 * np.pi)
+_SQRT_2 = np.sqrt(2.0)
+
+
+def _em_objective(cov: np.ndarray, z: np.ndarray):
+    """The M-step's objective: minus the weighted complete-data
+    log-likelihood (CovModelLogLikeEM :100-146) of the six parameters, as one
+    closure; the bins where ``cov`` is 0 add nothing.
+
+    What does not depend on the six parameters (the bins, the copy numbers,
+    the non-empty bins' counts and weights) is computed once per M-step; the
+    grid is laid out copies x bins, so that each ufunc runs along the bins;
+    and erf runs only where |a| < 6: the fit's skewness drives most of the
+    grid past that, where erf is the sign of a.  Each value is the one that
+    the plain formulas give, bit for bit (the same ufuncs on the same
+    values, the same BLAS product on a bins x copies copy), so Nelder-Mead
+    takes the same path.  The caller sets numpy's error state."""
+    from scipy.special import erf, zeta
+
     n = len(cov)
     i = np.arange(1, n + 1, dtype=np.float64)
+    i0 = np.arange(0, n + 1, dtype=np.float64)  # i - 1 and i share their tail
+    copies = np.arange(1, MAX_COPY + 1, dtype=np.float64)
+    col = copies[:, None]
+    sqrt_col = np.sqrt(copies)[:, None]
     nz = cov > 0
-    with np.errstate(divide="ignore", invalid="ignore"):
-        le = np.log(_perr(i, scale, shape))
-        copies = np.arange(1, MAX_COPY + 1, dtype=np.float64)
-        lg = np.log(_pgood(i, zp, u, sd, shape2, _dzeta(copies, zp)))
-    lg = np.where(np.isfinite(lg), lg, -1000.0)
-    le = np.where(np.isfinite(le), le, -1000.0)
-    return float(np.sum(cov[nz] * (z[nz] * le[nz] + (1.0 - z[nz]) * lg[nz])))
+    if nz.all():
+        nz = slice(None)
+    cn, zn = cov[nz], z[nz]
+    omz = 1.0 - zn
+    isfinite, where, log = np.isfinite, np.where, np.log
+    grids = (np.empty((MAX_COPY, n)), np.empty((MAX_COPY, n)), np.empty((MAX_COPY, n)),
+             np.empty((MAX_COPY, n), bool))
+
+    def objective(x: np.ndarray) -> float:
+        zp, shape, u, sd, scale, shape2 = x
+        if (zp <= 1 or shape <= 0 or sd <= 0 or u <= 0 or scale <= 0
+                or not isfinite(x).all()):
+            return np.inf
+        t, phi, erfs, live = grids
+        # _perr
+        pw = np.power(1.0 + shape * i0 / scale, -1.0 / shape)
+        pe = pw[:-1] - pw[1:]
+        le = log(where(isfinite(pe), pe, 0.0))
+        # _skew_normal_pdf over copies x bins, weighted by _dzeta
+        w = np.power(copies, -zp - 1.0) / zeta(zp + 1.0)
+        omega = np.maximum(sd * sqrt_col, 1e-300)
+        np.subtract(i, col * u, out=t)
+        t /= omega
+        np.multiply(t, -0.5, out=phi)
+        phi *= t
+        np.exp(phi, out=phi)
+        phi /= _SQRT_2PI
+        t *= shape2
+        t /= _SQRT_2
+        np.less(np.abs(t, out=erfs), _ERF_SATURATED, out=live)
+        np.sign(t, out=erfs)
+        at = np.flatnonzero(live)
+        erfs.ravel()[at] = erf(t.ravel()[at])
+        erfs += 1.0
+        erfs *= 0.5
+        phi *= 2.0 / omega
+        phi *= erfs
+        pdf = np.ascontiguousarray(phi.T)
+        g = pdf @ w
+        if not isfinite(g).all():
+            g = where(isfinite(pdf), pdf, 0.0) @ w
+        lg = log(g)
+        lg = where(isfinite(lg), lg, -1000.0)
+        le = where(isfinite(le), le, -1000.0)
+        return -float((cn * (zn * le[nz] + omz * lg[nz])).sum())
+
+    return objective
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +282,17 @@ def fit_coverage_model(
         prev_p = err_prob
         err_prob = float(np.sum(z * good_cov)) / total
         last_iter = abs(prev_p - err_prob) <= 1e-8
-        res = minimize(
-            lambda xx: -_em_loglike(xx, good_cov, z),
-            x,
-            method="Nelder-Mead",
-            options={
-                "maxfev": None if last_iter else 5 * 6 * it,
-                "xatol": 1e-8,
-                "fatol": 1e-8,
-            },
-        )
+        with np.errstate(all="ignore"):
+            res = minimize(
+                _em_objective(good_cov, z),
+                x,
+                method="Nelder-Mead",
+                options={
+                    "maxfev": None if last_iter else 5 * 6 * it,
+                    "xatol": 1e-8,
+                    "fatol": 1e-8,
+                },
+            )
         if np.all(np.isfinite(res.x)):
             x = res.x
         it += 1

@@ -29,8 +29,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .compress import compress
+from ..utils.timetracer import span
+from .compress import compress, compress_tracked
 from .coverage_model import GenomicInfo
+from .flanking import FlankingTable
 from .graph import CondensedGraph
 
 # how often `simplify` ran its schedule on each engine: the native library,
@@ -504,10 +506,16 @@ def simplify(
 
     flanking: optional FlankingCoverage index — or a callable
     ``g -> FlankingCoverage`` so it can be rebuilt after compress()
-    renumbers edges — consulted by the relative-coverage disconnector
-    (LocalCoverage semantics); when provided with rel_cov enabled the
-    schedule runs on the numpy loop (the native engine's rel-cov pass reads
-    whole-edge averages)."""
+    renumbers edges, or a `FlankingTable` that keeps its sums across each
+    compress and recomputes only new edges — consulted by the
+    relative-coverage disconnector (LocalCoverage semantics); when provided
+    with rel_cov enabled the schedule runs on the numpy loop (the native
+    engine's rel-cov pass reads whole-edge averages).
+
+    Spans: `simplification.loop` (`engine`, `iterations`),
+    `simplification.compress` (`edges`) after each mutating pass,
+    `simplification.flanking` per refresh of a `FlankingTable`, and
+    `simplification.tail` around the post-loop passes."""
     cfg = cfg or SimplifyConfig()
     stats = SimplifyStats()
     k = g.k
@@ -516,15 +524,38 @@ def simplify(
     tip_len_1 = max_tip_length(cfg, k, cfg.tc_lb)
     tip_len_2 = max_tip_length(cfg, k, cfg.tc_lb_alt)
 
-    if flanking is None or not cfg.rel_cov_enabled:
-        gn = _simplify_loop_native(
-            g, cfg, auto_cb, ec_len, tip_len_1, tip_len_2, kmer_mapper, stats
-        )
-        if gn is not None:
-            ENGINE_RUNS["native"] += 1
-            return _simplify_tail(gn, cfg, stats, kmer_mapper)
+    with span("simplification.loop") as s:
+        gn = None
+        if flanking is None or not cfg.rel_cov_enabled:
+            gn = _simplify_loop_native(
+                g, cfg, auto_cb, ec_len, tip_len_1, tip_len_2, kmer_mapper, stats
+            )
+        engine = "native" if gn is not None else "numpy"
+        ENGINE_RUNS[engine] += 1
+        if gn is None:
+            gn = _simplify_loop_numpy(
+                g, cfg, auto_cb, ec_len, tip_len_1, tip_len_2, kmer_mapper, stats, flanking
+            )
+        s.set(engine=engine, iterations=stats.iterations)
+    with span("simplification.tail"):
+        return _simplify_tail(gn, cfg, stats, kmer_mapper)
 
-    ENGINE_RUNS["numpy"] += 1
+
+def _simplify_loop_numpy(
+    g: CondensedGraph,
+    cfg: SimplifyConfig,
+    auto_cb: float,
+    ec_len: int,
+    tip_len_1: int,
+    tip_len_2: int,
+    kmer_mapper,
+    stats: "SimplifyStats",
+    flanking,
+) -> CondensedGraph:
+    """The main TC/BR/EC loop as vectorized numpy passes, with compression
+    after every mutating pass (a `FlankingTable` carries its sums across
+    each)."""
+    table = flanking if isinstance(flanking, FlankingTable) else None
     for it in range(cfg.cycle_iter_count):
         stats.iterations = it + 1
         # iterative coverage threshold ramp (icb auto semantics)
@@ -534,31 +565,47 @@ def simplify(
         n = clip_tips(g, tip_len_1, cov_bound=1e6, rctc=cfg.rctc)
         n += clip_tips(g, tip_len_2, cov_bound=auto_cb)
         if n:
-            g = compress(g)
+            g = _compress(g, table)
         stats.tips += n
         changed += n
         if cfg.br_enabled:
             n = remove_bulges(g, cfg, kmer_mapper)
             n += remove_bulges_dijkstra(g, cfg)
             if n:
-                g = compress(g)
+                g = _compress(g, table)
             stats.bulges += n
             changed += n
         n = remove_low_cov_ec(g, ec_len, icb)
         if cfg.rel_cov_enabled:
-            fl = flanking(g) if callable(flanking) else flanking
+            if table is not None:
+                fl = table.refresh(g)
+            else:
+                fl = flanking(g) if callable(flanking) else flanking
             n += disconnect_relative_coverage(
                 g, cfg.rel_cov_ratio, ec_len * 5, flanking=fl
             )
         if n:
-            g = compress(g)
+            g = _compress(g, table)
         stats.ec += n
         changed += n
         if changed == 0 and frac >= 1.0:
             break
         if changed == 0 and not np.isfinite(auto_cb):
             break
-    return _simplify_tail(g, cfg, stats, kmer_mapper)
+    return g
+
+
+def _compress(g: CondensedGraph, table: FlankingTable | None = None) -> CondensedGraph:
+    """`compress` in a `simplification.compress` span; with a flanking
+    table, its sums are carried onto the new edges."""
+    with span("simplification.compress") as s:
+        if table is None:
+            gn = compress(g)
+        else:
+            gn, heads, n_arcs = compress_tracked(g)
+            table.carry(g, gn, heads, n_arcs)
+        s.set(edges=int(gn.num_edges))
+    return gn
 
 
 def _simplify_tail(
@@ -602,10 +649,10 @@ def _simplify_tail(
             stats.ec += m
             n += m
         if n:
-            g = compress(g)
+            g = _compress(g)
     if cfg.ier_enabled:
         n = remove_isolated(g, cfg.read_length)
         if n:
-            g = compress(g)
+            g = _compress(g)
         stats.isolated += n
     return g, stats

@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 
+from .. import resolve_device
 from ..graph.coverage_model import fit_coverage_model
 from ..graph.simplify import SimplifyConfig, simplify
 from ..io.contigs import extract_contigs, write_contigs
@@ -144,12 +145,13 @@ class Simplification(AssemblyStage):
         flanking = None
         if cfg.rel_cov_enabled and ctx.p1_counts is not None:
             # LocalCoverage for the relative-coverage disconnector
-            # (detail_coverage.hpp role); callable so it refreshes after
-            # each compaction renumbering
-            from ..graph.flanking import build_flanking
+            # (detail_coverage.hpp role), kept up to date across each
+            # compaction; looked up on the card where the run has one
+            from ..graph.flanking import FlankingTable
 
-            p1 = ctx.p1_counts
-            flanking = lambda g: build_flanking(g, p1.words, p1.counts)
+            dev = resolve_device(ctx.device)
+            flanking = FlankingTable(ctx.p1_counts.words, ctx.p1_counts.counts,
+                                     device=dev if dev.type == "cuda" else None)
         ctx.graph, stats = simplify(
             ctx.graph, ctx.genomic_info, cfg, kmer_mapper=ctx.kmer_mapper,
             flanking=flanking,

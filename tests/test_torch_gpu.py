@@ -722,3 +722,43 @@ def test_mismatch_string_path_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
     assert np.array_equal(out["cuda"][1].seq_pool, out["cpu"][1].seq_pool)
     assert all(int(out["cuda"][1].seq_pool[p]) == b for p, (_c, b) in planted.items())
     assert out["cuda"][2] > 0 and out["cpu"][2] == 0
+
+
+def test_meta_flanking_on_the_card_matches_cpu(cuda, monkeypatch, tmp_path):
+    """`--meta --only-assembler` on a small four-genome community: at every
+    K the flanking index is looked up on the card (`path` "device") and its
+    sums at each refresh equal the CPU path's, and every file of the card's
+    run equals the CPU's, contigs and scaffolds included."""
+    import chip_smoke
+    from spades_tpu_torch.graph import flanking as FL
+    from spades_tpu_torch.pipeline import main as t_main
+    from spades_tpu_torch.tools import synthetic
+
+    for name, value in SMALL_PATHS:
+        monkeypatch.setenv(name, value)
+    _genomes, r1, r2, _origin = synthetic.make_community(
+        [40_000, 30_000, 20_000, 10_000], [60, 30, 16, 8], 150, 0.003, 67)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    paths = [chip_smoke.write_reads(str(tmp_path / f"meta_{m}.fq"),
+                                    [acgt[row].tobytes().decode() for row in r], m, "m")
+             for m, r in ((1, r1), (2, r2))]
+    seen = {}
+    inner = FL.FlankingTable.refresh
+
+    def refresh(self, g):
+        fl = inner(self, g)
+        seen.setdefault(run, []).append((g.k, self.path, fl.raw.copy()))
+        return fl
+
+    monkeypatch.setattr(FL.FlankingTable, "refresh", refresh)
+    for run in ("cuda", "cpu"):
+        assert t_main.main(["-1", paths[0], "-2", paths[1], "--meta", "--only-assembler",
+                            "-o", str(tmp_path / run), "--device", run]) == 0
+    assert {k for k, _p, _r in seen["cuda"]} == {21, 33, 55, 77}
+    assert {p for _k, p, _r in seen["cuda"]} == {"device"}
+    assert {p for _k, p, _r in seen["cpu"]} == {"host"}
+    assert len(seen["cuda"]) == len(seen["cpu"])
+    for (ka, _pa, a), (kb, _pb, b) in zip(seen["cuda"], seen["cpu"]):
+        assert ka == kb and np.array_equal(a, b)
+    names = _assert_same_dirs(str(tmp_path / "cuda"), str(tmp_path / "cpu"))
+    assert {"contigs.fasta", "scaffolds.fasta"} <= names

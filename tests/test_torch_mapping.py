@@ -281,6 +281,55 @@ def test_map_store_host_path_and_residue_match_jax(assembled, monkeypatch):
     assert got[2][0] > plain[2][0]
 
 
+@pytest.mark.parametrize("index_on_device, sub", [(True, 131072), (False, 7)])
+def test_residue_pass_equals_the_host_pass_and_jax(assembled, device_path, monkeypatch,
+                                                    index_on_device, sub):
+    """Many reads whose every window holds a glued base, on both strands, at
+    several lengths, with Ns, shorter than k, or not glued at all: the
+    residue pass on the device index maps each as `map_read_batch`'s host
+    path does, and the whole store as the JAX package does."""
+    g, reads = assembled
+    if not index_on_device:
+        monkeypatch.setenv("SPADES_DEVICE_INDEX_POOL", str(10**9))
+    rng = np.random.default_rng(21)
+    swap = {"A": "C", "C": "G", "G": "T", "T": "A", "N": "N"}
+    kmappers = [mod.KmerMapper(k=K_MAP) for mod in (t_kmapper, j_kmapper)]
+    residue = []
+    for i in rng.choice(600, 60, replace=False):
+        orig = reads[i]
+        if len(orig) < 60 or "N" in orig:
+            continue
+        var = list(orig)
+        for p in range(int(rng.integers(0, 12)), len(var), 15):
+            var[p] = swap[var[p]]
+        var = "".join(var)
+        if len(residue) % 5 != 4:               # every fifth stays unglued
+            for m in kmappers:
+                m.remap_sequences(var, orig)
+        cut = int(rng.integers(K_MAP, len(var) + 1))
+        residue.append(var[:cut] if len(residue) % 3 == 1 else var)
+    residue[1] = dna.revcomp_str(residue[1])
+    residue[2] = residue[2][:30] + "N" + residue[2][31:]
+    residue[3] = residue[3][: K_MAP - 1]         # shorter than k
+    store_reads = reads[:200] + residue
+    ts, js = _stores(store_reads, 64)
+    eng = t_mapper.MappingEngine(g, device="cpu")
+    monkeypatch.setenv("SPADES_MAP_SUBCHUNK", str(sub))
+    got = eng.map_store(ts, kmer_mapper=kmappers[0])
+    ref = j_mapper.MappingEngine(_jgraph(g)).map_store(js, kmer_mapper=kmappers[1])
+    for a, b in zip(got, ref):
+        assert np.array_equal(a, b)
+    stats = t_mapper.RESIDUE_STATS[-1]
+    assert stats["rerun"] > 50 and 0 < stats["recovered"] < stats["rerun"]
+    # read for read against the host path on the residue alone
+    host = t_mapper.map_read_batch(eng.index, g, residue, kmer_mapper=kmappers[0],
+                                   _force_host=True)
+    e, s, v = eng._map_residue([dna.encode(r) for r in residue], kmappers[0])
+    assert e.tolist() == [m.edge if m else -1 for m in host]
+    assert s.tolist() == [m.start_offset if m else 0 for m in host]
+    assert v.tolist() == [m.n_hits if m else 0 for m in host]
+
+
 def test_map_read_batch_matches_jax(assembled, monkeypatch):
     g, reads = assembled
     jg = _jgraph(g)

@@ -128,6 +128,39 @@ def test_fit_coverage_model_matches(name, hist, converged):
         assert got.converged is converged
 
 
+@pytest.mark.parametrize("name, hist", [
+    ("converged", _converged_hist()), ("uneven", _uneven_hist())])
+def test_em_objective_equals_the_plain_loglike(name, hist):
+    """The M-step's objective, bit for bit, at the points a fit visits and at
+    corners that are out of support, overflow or make the weights NaN; over
+    every bin, and with empty bins left out."""
+    from scipy.special import erf
+
+    rng = np.random.default_rng(7)
+    cov = np.asarray(hist[1:], np.float64)
+    z = rng.random(len(cov))
+    holed = cov.copy()
+    holed[rng.random(len(cov)) < 0.2] = 0.0
+    xs = [np.array([3.0, 3.0, 40.0, 9.0, 1.0, 0.0]), np.array([3.0, 1.5, 40.0, 15.0, 2.0, -7.7]),
+          np.array([1.5, 0.2, 1e307, 1e-305, 1e-300, 4.0]), np.array([0.5, 3.0, 40.0, 9.0, 1.0, 0.0]),
+          np.array([3.0, 3.0, np.inf, 9.0, 1.0, 0.0]), np.array([400.0, 1e-9, 3.0, 2.0, 1e-9, 0.0])]
+    for _ in range(400):
+        x = np.array([rng.uniform(0.8, 6), rng.uniform(-0.2, 5), rng.uniform(-1, 150),
+                      rng.uniform(-1, 30), rng.uniform(-0.2, 5), rng.uniform(-12, 12)])
+        if rng.random() < 0.2:
+            x[rng.integers(6)] *= 10.0 ** rng.integers(-300, 300)
+        xs.append(x)
+    for c in (cov, holed):
+        objective = t_cov._em_objective(c, z)
+        with np.errstate(all="ignore"):
+            got = np.array([objective(x) for x in xs])
+            ref = np.array([-j_cov._em_loglike(x, c, z) for x in xs])
+        assert np.array_equal(got, ref, equal_nan=True)
+    # the premise of computing erf only below |a| = 6
+    a = np.concatenate([np.linspace(6.0, 40.0, 5000), np.geomspace(40.0, 1e308, 200), [np.inf]])
+    assert (erf(a) == 1.0).all() and (erf(-a) == -1.0).all()
+
+
 def test_fit_on_the_raw_graph_and_uneven_threshold(raw, info):
     g, p1 = raw
     assert dataclasses.asdict(info) == dataclasses.asdict(
@@ -278,6 +311,111 @@ def test_simplify_matches(raw, info, monkeypatch, engine, cfg_name):
     jm.normalize(), tm.normalize()
     for a, b in zip(mapper_rows(jm), mapper_rows(tm)):
         assert np.array_equal(a, b)
+
+
+def _plain_flank_sums(g, p1, averaging_range=50):
+    """Each alive edge's raw flank sum by a loop: its first min(len, range)
+    (k+1)-mers, each canonicalised and looked up in a dict of the table."""
+    k1 = g.k + 1
+    cols = [(p1.words[:, j // 16] >> np.uint32(30 - 2 * (j % 16))) & 3 for j in range(k1)]
+    codes = np.stack(cols, axis=1).astype(np.uint8)
+    table = dict(zip(map(bytes, codes), p1.counts.tolist()))
+    raw = np.zeros(g.alive.shape[0])
+    for e in np.flatnonzero(g.alive):
+        seq = g.seq_pool[g.e_off[e]: g.e_off[e] + g.e_len[e]]
+        for i in range(min(int(g.e_len[e]) - g.k, averaging_range)):
+            fwd = seq[i: i + k1]
+            rc = (3 - fwd)[::-1]
+            raw[e] += table.get(min(bytes(fwd), bytes(rc)), 0)
+    return raw
+
+
+@pytest.mark.parametrize("path", ["host", "torch_cpu"])
+def test_kept_flanking_equals_a_fresh_build(raw, info, monkeypatch, path):
+    """A meta schedule on the numpy loop with a `FlankingTable`: after every
+    compress the sums it carries equal a fresh `build_flanking`'s, each
+    refresh equals a fresh build and a plain loop over the windows, later
+    refreshes recompute few edges, and the schedule's graph, stats and
+    KmerMapper rows equal the JAX package's numpy loop with a full rebuild."""
+    import torch
+
+    from spades_tpu_torch.utils import timetracer
+
+    g0, p1 = raw
+    device = None if path == "host" else torch.device("cpu")
+    table = t_flanking.FlankingTable(p1.words, p1.counts, device=device)
+    seen = {"compress": 0, "refresh": 0}
+    inner_compress, inner_refresh = t_simplify._compress, table.refresh
+
+    def compress(g, tab=None):
+        gn = inner_compress(g, tab)
+        if tab is not None and tab._raw is not None:
+            # (before the first refresh the table holds nothing to carry)
+            seen["compress"] += 1
+            fresh = t_flanking.build_flanking(gn, p1.words, p1.counts).raw
+            known = ~np.isnan(tab._raw)
+            assert tab._graph is gn and known.sum() > 0
+            assert np.array_equal(tab._raw[known], fresh[known])
+        return gn
+
+    def refresh(g):
+        fl = inner_refresh(g)
+        seen["refresh"] += 1
+        assert np.array_equal(fl.raw, t_flanking.build_flanking(g, p1.words, p1.counts).raw)
+        assert np.array_equal(fl.raw, _plain_flank_sums(g, p1))
+        return fl
+
+    monkeypatch.setattr(t_simplify, "_compress", compress)
+    monkeypatch.setattr(table, "refresh", refresh)
+    jg, tg = both(g0)
+    jcfg = j_simplify.SimplifyConfig(**CONFIGS["rel_cov"])
+    tcfg = convert.simplify_config_from_dict(dataclasses.asdict(jcfg))
+    jinfo = j_cov.GenomicInfo(**dataclasses.asdict(info))
+    jm, tm = JKmerMapper(k=K), TKmerMapper(k=K)
+    jfl = lambda g: j_flanking.build_flanking(g, p1.words, p1.counts)
+    timetracer.enable()
+    try:
+        tout, tstats = t_simplify.simplify(tg, info, tcfg, kmer_mapper=tm, flanking=table)
+        events = timetracer.events()
+    finally:
+        timetracer.disable()
+    jout, jstats = j_simplify.simplify(jg, jinfo, jcfg, kmer_mapper=jm, flanking=jfl)
+    assert seen["compress"] >= 2 and seen["refresh"] == tstats.iterations >= 2
+    assert dataclasses.asdict(tstats) == dataclasses.asdict(jstats)
+    assert_same_graph(jout, tout)
+    jm.normalize(), tm.normalize()
+    for a, b in zip(mapper_rows(jm), mapper_rows(tm)):
+        assert np.array_equal(a, b)
+    flank = [e["args"] for e in events if e["args"]["detail"] == "simplification.flanking"]
+    assert len(flank) == seen["refresh"]
+    assert all(a["path"] == ("host" if device is None else "device") for a in flank)
+    assert flank[0]["recomputed"] == flank[0]["edges"] > 0 and flank[0]["windows"] > 0
+    assert all(a["recomputed"] < a["edges"] for a in flank[1:])
+    names = {e["args"]["detail"] for e in events}
+    assert {"simplification.loop", "simplification.compress", "simplification.tail"} <= names
+    [loop] = [e["args"] for e in events if e["args"]["detail"] == "simplification.loop"]
+    assert loop["engine"] == "numpy" and loop["iterations"] == tstats.iterations
+
+
+def test_flanking_table_on_torch_equals_the_host(raw):
+    """The table's torch path (the canonical-windows kernel's plain version
+    and `device_searchsorted_rows` under CPU torch) against its host path on
+    the raw graph, in slices smaller than the graph."""
+    import torch
+
+    g, p1 = raw
+    host = t_flanking.FlankingTable(p1.words, p1.counts).refresh(g)
+    dev = t_flanking.FlankingTable(p1.words, p1.counts, device=torch.device("cpu"))
+    ids = g.alive_edge_ids()
+    sums = dev._device_sums(g, ids[:5])
+    assert np.array_equal(sums, host.raw[ids[:5]])
+    old = t_flanking.DEVICE_EDGES
+    try:
+        t_flanking.DEVICE_EDGES = 777
+        got = dev.refresh(g)
+    finally:
+        t_flanking.DEVICE_EDGES = old
+    assert np.array_equal(got.raw, host.raw) and (host.raw > 0).sum() > 1000
 
 
 def test_simplify_native_on_a_tangled_graph():
