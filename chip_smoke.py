@@ -154,6 +154,24 @@
    host residue pass must recover some), and MismatchCorrection's string path
    (`correct_mismatches(g, reads)`) restoring bases planted into the graph.
 
+20. The coverage EM kernel (`csrc/coverage_em.cu`, one launch per coverage
+   fit) on the histograms the main path gave it: every fit of phases 5, 6
+   and 9 (error correction, the isolate's K ladder, meta's) is made again on
+   the card, twice (bit for bit equal, and equal to the main path's fit),
+   with the plain PyTorch version and on the host (scipy): isolate and error
+   correction fits with every integer field equal to both, the mean within
+   1e-3 and the sd within 1e-2 (relative); meta's with `trusted_bound`, the
+   one field its stages read, equal (its fit may end in another basin, as
+   the host's own does under a 1-ulp change of the objective).  The
+   kernel's launches are counted per driven path (one per fit on the card)
+   and timed with CUDA events beside the plain version, the host EM and the
+   kernel's float64 bound (run after 9).
+
+Where the card's files must equal the CPU's, a checkpoint's state.json is
+compared as JSON with its coverage fit's mean within 1e-2 (relative), every
+other field exact: the card's fit differs from the host's in its float
+fields (`FIT_MEAN_RTOL`).
+
 Every earlier line is one JSON record (or the card's `nvidia-smi` line); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA card, without the
 package beside this script, or when any phase fails, it exits non-zero and
@@ -1138,6 +1156,26 @@ def read_bytes(path: str) -> bytes:
         return fh.read()
 
 
+# the card's coverage fit (graph/coverage_model.py:fit_coverage_model) differs
+# from the host's in its float fields, and a checkpoint keeps its mean: in the
+# last digits, or where the EM's stopping round hangs on them further (phase
+# 19's mate-pair run at K = 33: 1.96e-3 relative, the integer fields equal;
+# scipy orders tied vertices otherwise than the kernel's stable sort)
+FIT_MEAN_RTOL = 1e-2
+
+
+def same_output(a: str, b: str) -> bool:
+    """The two files are equal; a checkpoint's state.json as JSON, its
+    coverage fit's `estimated_mean` within FIT_MEAN_RTOL, the rest exact."""
+    if os.path.basename(a) != "state.json":
+        return read_bytes(a) == read_bytes(b)
+    with open(a) as fa, open(b) as fb:
+        sa, sb = json.load(fa), json.load(fb)
+    ga, gb = sa.pop("genomic_info", {}), sb.pop("genomic_info", {})
+    ma, mb = ga.pop("estimated_mean", 0.0), gb.pop("estimated_mean", 0.0)
+    return sa == sb and ga == gb and abs(ma - mb) <= FIT_MEAN_RTOL * abs(mb)
+
+
 def phase_programs(dev, seqs, quals, graph, k: int, batch: int = 8192,
                    vote_reads: int = 65536) -> dict:
     """Each device program of error correction and careful mode against its
@@ -1437,6 +1475,10 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
     check("Mismatch Correction" in log_text, "CLI: careful mode did not run")
     launches = int(found[0])
     check(launches > 0 or dev.type == "cpu", "CLI: the canonical-windows kernel was not launched")
+    em_found = re.findall(r"kernel launches: canonical_windows=\d+ coverage_em=(\d+)", log_text)
+    check(len(em_found) == 1, "CLI: its log does not say how often it launched the coverage EM")
+    em_launches = int(em_found[0])
+    check(em_launches > 0 or dev.type == "cpu", "CLI: the coverage EM kernel was not launched")
     with open(os.path.join(out, "run_spades.yaml")) as fh:
         yaml_lines = fh.read().count("\n")
     gap_state["cli_fastq"], gap_state["cli_out"] = paths, out     # phase 18's CLI run
@@ -1444,7 +1486,8 @@ def phase_cli(dev, workdir: str, gap_state, timeout_s: int = 900):
             "command": " ".join(os.path.relpath(c, workdir) if c.startswith(workdir) else c
                                 for c in cmd[1:]),
             "wall_s": wall_s,
-            "launches": launches, "run_spades_yaml_lines": yaml_lines,
+            "launches": launches, "coverage_em_launches": em_launches,
+            "run_spades_yaml_lines": yaml_lines,
             "residue_pass": residue_lines(log_text)}, launches
 
 
@@ -1934,7 +1977,7 @@ def phase_card_against_cpu(workdir: str, card_recs: dict, worker, timeout_s: int
         check(names == files_under(b), f"{name}: the card and the CPU wrote different files: "
                                        f"{sorted(names ^ files_under(b))[:10]}")
         for rel in sorted(names):
-            check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+            check(same_output(os.path.join(a, rel), os.path.join(b, rel)),
                   f"{name}: the card's and the CPU's {rel} differ")
         for key in ("contigs", "stages", "gap_closer", "rr", "modes"):
             check(json.loads(json.dumps(card[key])) == cpu[key],
@@ -2400,7 +2443,7 @@ def phase_other_modes(dev, workdir: str, card_dir: str, files: dict, cli, worker
         check(names == other, f"{name}: the card and the CPU wrote different files: "
                               f"{sorted(names ^ other)[:10]}")
         for rel in sorted(names):
-            check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+            check(same_output(os.path.join(a, rel), os.path.join(b, rel)),
                   f"{name}: the card's and the CPU's {rel} differ")
         with open(os.path.join(cpu_dir, f"{name}.json")) as fh:
             cpu = json.load(fh)
@@ -2650,7 +2693,7 @@ def same_trees(name: str, a: str, b: str) -> int:
     check(names == other, f"{name}: the card and the CPU wrote different files: "
                           f"{sorted(names ^ other)[:10]}")
     for rel in sorted(names):
-        check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+        check(same_output(os.path.join(a, rel), os.path.join(b, rel)),
               f"{name}: the card's and the CPU's {rel} differ")
     return len(names)
 
@@ -4039,7 +4082,7 @@ def phase_user_paths(dev, workdir: str, inp: dict, card, worker):
         check(names == other, f"{name}: the card and the CPU wrote different files: "
                               f"{sorted(names ^ other)[:10]}")
         for rel in sorted(names):
-            check(read_bytes(os.path.join(a, rel)) == read_bytes(os.path.join(b, rel)),
+            check(same_output(os.path.join(a, rel), os.path.join(b, rel)),
                   f"{name}: the card's and the CPU's {rel} differ")
         check(r["residue_pass"] == cpu[name]["residue_pass"],
               f"{name}: the card's and the CPU's mapping passes differ")
@@ -4098,6 +4141,165 @@ def user_paths_alone(dev, seed: int, genome_size: int = 5_000_000, coverage: int
     return dict(rec, launches_by_path=launches, total_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# 20. the coverage EM kernel on the main path's histograms
+# ---------------------------------------------------------------------------
+
+EM_HELD_PATHS = ("error_correction", "assembly", "meta")
+EM_INTS = ("ec_bound", "trusted_bound", "genome_size", "converged")
+
+
+@contextlib.contextmanager
+def em_path(dev, fits: list, launches: dict, path: str):
+    """Within, every coverage fit that GenomicInfoFiller or error correction
+    makes is appended to `fits` (its path, the histogram of its
+    multiplicities, its device and its GenomicInfo), and the EM kernel's
+    launches, counted from 0, are `launches[path]`: one per fit on the
+    card."""
+    import numpy as np
+
+    from spades_tpu_torch.hammer import hammer as H
+    from spades_tpu_torch.ops import coverage_em as E
+    from spades_tpu_torch.pipeline import spades_stages as S
+
+    real = S.fit_coverage_model          # graph/coverage_model.py's, in both modules
+    mine = []
+
+    def fit(m, *args, **kw):
+        info = real(m, *args, **kw)
+        dev_of = kw.get("device")
+        mine.append({"path": path, "hist": np.bincount(np.asarray(m).astype(np.int64)),
+                     "on_card": dev_of is not None and str(dev_of).startswith("cuda"),
+                     "info": info})
+        return info
+
+    S.fit_coverage_model = H.fit_coverage_model = fit
+    E.coverage_em.launches = 0
+    try:
+        yield
+    finally:
+        S.fit_coverage_model = H.fit_coverage_model = real
+    launches[path] = E.coverage_em.launches
+    on_card = sum(f["on_card"] for f in mine)
+    check(launches[path] == on_card,
+          f"{path}: {launches[path]} coverage EM launches for {on_card} fits on the card")
+    check(on_card > 0 or dev.type == "cpu", f"{path}: no coverage fit ran on the card")
+    fits.extend(mine)
+
+
+def _em_inputs(counts):
+    """The host fit of `counts`, the arguments of its EM and the EM's
+    seconds."""
+    from spades_tpu_torch.graph import coverage_model as cm
+
+    seen = {}
+    host_em = cm._em_host
+
+    def spy(*args):
+        seen["args"] = args
+        t0 = time.perf_counter()
+        res = host_em(*args)
+        seen["s"] = time.perf_counter() - t0
+        return res
+    cm._em_host = spy
+    try:
+        info = cm.fit_coverage_model(counts)
+    finally:
+        cm._em_host = host_em
+    return info, seen["args"], seen["s"]
+
+
+def _fit_from(counts, em_result):
+    """fit_coverage_model of `counts` with its EM's result given."""
+    from spades_tpu_torch.graph import coverage_model as cm
+
+    host_em = cm._em_host
+    cm._em_host = lambda *_a: em_result
+    try:
+        return cm.fit_coverage_model(counts)
+    finally:
+        cm._em_host = host_em
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def phase_coverage_em(dev, fits: list) -> dict:
+    """Every fit on the card of EM_HELD_PATHS made again: the kernel twice
+    (bit for bit equal, the GenomicInfo equal to the main path's), against
+    the plain version and the host's scipy EM, with times and the bound."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from spades_tpu_torch.ops import coverage_em as E
+    from spades_tpu_torch.tools import kernel_shapes as KS
+
+    rows, failures = [], []
+    for f in fits:
+        if not f["on_card"] or f["path"] not in EM_HELD_PATHS:
+            continue
+        counts = np.repeat(np.arange(len(f["hist"])), f["hist"])
+        host, (good_cov, x0, p0, total), host_s = _em_inputs(counts)
+        cov = torch.from_numpy(np.ascontiguousarray(good_cov))
+        on_card = cov.to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        first = E.coverage_em(on_card, x0, p0, total)
+        end.record()
+        sync(dev)
+        ms = start.elapsed_time(end)
+        second = E.coverage_em(on_card, x0, p0, total)
+        t0 = time.perf_counter()
+        plain = E.coverage_em(cov, x0, p0, total)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        card, via_plain = _fit_from(counts, first), _fit_from(counts, plain)
+        nonempty = int((good_cov > 0).sum())
+        row = {"path": f["path"], "bins": len(good_cov), "nonempty_bins": nonempty,
+               "rounds": first[2], "evals": first[3], "plain_rounds": plain[2],
+               "plain_evals": plain[3], "ms": ms, "us_per_eval": ms * 1e3 / max(first[3], 1),
+               "plain_ms": plain_ms, "host_ms": host_s * 1e3,
+               "bound_ms": KS.coverage_em_bound(nonempty, first[3]),
+               "repeat_equal": (first[0].tobytes() == second[0].tobytes()
+                                and first[1:] == second[1:]),
+               "main_path_equal": dataclasses.asdict(card) == dataclasses.asdict(f["info"]),
+               "card": [getattr(card, n) for n in EM_INTS],
+               "host": [getattr(host, n) for n in EM_INTS],
+               "plain": [getattr(via_plain, n) for n in EM_INTS],
+               "mean_rel_host": _rel(card.estimated_mean, host.estimated_mean),
+               "mean_rel_plain": _rel(card.estimated_mean, via_plain.estimated_mean),
+               "sd_rel_host": _rel(card.estimated_sd, host.estimated_sd),
+               "sd_rel_plain": _rel(card.estimated_sd, via_plain.estimated_sd)}
+        rows.append(row)
+        what = f"coverage EM, {f['path']} fit {len(rows)}"
+        if not row["repeat_equal"]:
+            failures.append(f"{what}: two launches differ")
+        if not row["main_path_equal"]:
+            failures.append(f"{what}: the main path's fit differs from the kernel's")
+        if f["path"] == "meta":       # meta's stages read trusted_bound alone
+            if not card.trusted_bound == host.trusted_bound == via_plain.trusted_bound:
+                failures.append(f"{what}: trusted_bound {row['card']} / {row['host']} / "
+                                f"{row['plain']} (card / host / plain)")
+        else:
+            if not row["card"] == row["host"] == row["plain"]:
+                failures.append(f"{what}: integer fields {row['card']} / {row['host']} / "
+                                f"{row['plain']} (card / host / plain)")
+            if max(row["mean_rel_host"], row["mean_rel_plain"]) > 1e-3:
+                failures.append(f"{what}: mean off by {row['mean_rel_host']:.3g} / "
+                                f"{row['mean_rel_plain']:.3g} (host / plain)")
+            if max(row["sd_rel_host"], row["sd_rel_plain"]) > 1e-2:
+                failures.append(f"{what}: sd off by {row['sd_rel_host']:.3g} / "
+                                f"{row['sd_rel_plain']:.3g} (host / plain)")
+    check(rows or dev.type == "cpu", "coverage EM: no fit on the card to hold")
+    rec = {"phase": "coverage_em", "fits": rows, "failures": failures}
+    if failures:
+        emit(rec)
+    check(not failures, "; ".join(failures))
+    return rec
+
+
 def phase_observed_shapes(dev, observed, held, max_groups: int = 64) -> dict:
     """`observed` counts launches by (R, L, k, strand).  For every (L, k,
     strand) among them, its largest R is checked against the plain version
@@ -4145,10 +4347,12 @@ def phase_observed_shapes(dev, observed, held, max_groups: int = 64) -> dict:
             "shapes": shapes}
 
 
-def kernels_line(kernel_rec: dict, observed_rec: dict, launches: dict) -> dict:
+def kernels_line(kernel_rec: dict, observed_rec: dict, launches: dict, em_rec: dict,
+                 em_launches: dict) -> dict:
     """The per-kernel summary: launches by driven path, times at the k=56
     ReadStore chunk (else the last main-path shape without the strand plane),
-    the largest error over every shape held against the plain version."""
+    the largest error over every shape held against the plain version; for
+    the coverage EM, times at the held fit with the most evaluations."""
     shapes = kernel_rec["shapes"]
     top = next((s for s in shapes if s["shape"] == "ReadStore chunk k=56"),
                [s for s in shapes if not s["strand"]][-1])
@@ -4166,15 +4370,36 @@ def kernels_line(kernel_rec: dict, observed_rec: dict, launches: dict) -> dict:
         "bound_by": top["bound_by"],
         "library_ms": None,
         "at": top["shape"],
-    }]}
+    }, coverage_em_line(em_rec, em_launches)]}
+
+
+def coverage_em_line(em_rec: dict, em_launches: dict) -> dict:
+    fits = em_rec["fits"]
+    top = max(fits, key=lambda r: r["evals"]) if fits else {}
+    return {
+        "name": "coverage_em",
+        "route": "cuda",
+        "source": "spades_tpu_torch/csrc/coverage_em.cu",
+        "replaces": None,          # the JAX package fits on the host
+        "launches": sum(em_launches.values()),
+        "launches_by_path": em_launches,
+        "fits_held": len(fits),
+        "max_mean_rel_err": max((max(r["mean_rel_host"], r["mean_rel_plain"]) for r in fits
+                                 if r["path"] != "meta"), default=None),
+        **{key: top.get(key) for key in ("ms", "plain_ms", "host_ms", "bound_ms",
+                                         "us_per_eval", "evals", "nonempty_bins")},
+        "bound_by": "float64 operations",
+        "library_ms": None,
+        "at": f"{top['path']}, {top['nonempty_bins']} bins" if fits else None,
+    }
 
 
 def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         main_shapes=None, rand_R: int = 2048, gap_genome: int = 300_000,
         gap_count: int = 30, total_tolerance: float = 0.02, meta_sizes=META_SIZES,
         small_sizes=None, rna_sizes=None):
-    """All phases on `dev` (16 after 15, 17 after 16, 18 after 17, 19 after 18,
-    13 last);
+    """All phases on `dev` (20 after 9, 16 after 15, 17 after 16, 18 after 17,
+    19 after 18, 13 last);
     returns the kernels line.
     Raises on any failure.
     total_tolerance: how far the contigs' total may be from the genome size
@@ -4194,6 +4419,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     emit(kern)
     observed = collections.Counter()
     launches = {}
+    em_fits, em_launches = [], {}
     workdir = tempfile.mkdtemp(prefix="spades_torch_smoke_")
     worker = worker7 = worker16 = worker17 = card17 = cli7 = sharded = card19 = worker19 = None
     try:
@@ -4211,20 +4437,23 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         del state["store"], state["graph"]
-        rec, launches["error_correction"], shapes, corrected = phase_error_correction(
-            dev, state, seed)
+        with em_path(dev, em_fits, em_launches, "error_correction"):
+            rec, launches["error_correction"], shapes, corrected = phase_error_correction(
+                dev, state, seed)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
-        rec, launches["assembly"], shapes = phase_assembly(
-            dev, workdir, state, seed, corrected, total_tolerance=total_tolerance)
+        with em_path(dev, em_fits, em_launches, "assembly"):
+            rec, launches["assembly"], shapes = phase_assembly(
+                dev, workdir, state, seed, corrected, total_tolerance=total_tolerance)
         del corrected
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         del state
-        rec, launches["gap_closing"], shapes, gap_state = phase_gap(
-            dev, workdir, seed, gap_genome, n_gaps=gap_count)
+        with em_path(dev, em_fits, em_launches, "gap_closing"):
+            rec, launches["gap_closing"], shapes, gap_state = phase_gap(
+                dev, workdir, seed, gap_genome, n_gaps=gap_count)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
@@ -4233,22 +4462,29 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         worker = start_cpu_worker(workdir, seed, small_sizes,
                                   os.path.join(gap_state["out"], GFA_NAME))
         rec, launches["cli"] = phase_cli(dev, workdir, gap_state)
+        em_launches["cli"] = rec["coverage_em_launches"]
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
         card_runs = {}
-        rec, counts, shapes, card_runs["meta"], community = phase_meta(
-            dev, workdir, seed, small_sizes, sizes=meta_sizes)
+        with em_path(dev, em_fits, em_launches, "meta"):
+            rec, counts, shapes, card_runs["meta"], community = phase_meta(
+                dev, workdir, seed, small_sizes, sizes=meta_sizes)
         launches.update(counts)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
-        rec, counts, shapes, card_runs["hybrid"] = phase_hybrid(
-            dev, workdir, seed, small_sizes, gap_closed, gap_state)
+        em_rec = phase_coverage_em(dev, em_fits)
+        em_rec["total_s"] = time.perf_counter() - t0
+        emit(em_rec)
+        with em_path(dev, em_fits, em_launches, "hybrid"):
+            rec, counts, shapes, card_runs["hybrid"] = phase_hybrid(
+                dev, workdir, seed, small_sizes, gap_closed, gap_state)
         launches.update(counts)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
         emit(rec)
-        rec, counts, shapes, runs = phase_modes(dev, workdir, seed, small_sizes, gap_state)
+        with em_path(dev, em_fits, em_launches, "modes"):
+            rec, counts, shapes, runs = phase_modes(dev, workdir, seed, small_sizes, gap_state)
         launches.update(counts)
         card_runs.update(runs)
         observed.update(shapes)
@@ -4279,7 +4515,8 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
         inp19 = p19_inputs(workdir, seed, dev, gap_state, genome_size, coverage)
         card19 = start_p19(workdir, inp19, "card")
         worker19 = start_p19(workdir, inp19, "cpu")
-        rec, counts, shapes = phase_rna(dev, workdir, seed, rna_sizes)
+        with em_path(dev, em_fits, em_launches, "rna"):
+            rec, counts, shapes = phase_rna(dev, workdir, seed, rna_sizes)
         launches.update(counts)
         observed.update(shapes)
         rec["total_s"] = time.perf_counter() - t0
@@ -4326,7 +4563,7 @@ def run(dev, genome_size: int, coverage: int, subset_pairs: int, seed: int,
     seen = phase_observed_shapes(dev, observed, main_shapes or KS.MAIN_SHAPES)
     seen["total_s"] = time.perf_counter() - t0
     emit(seen)
-    return kernels_line(kern, seen, launches)
+    return kernels_line(kern, seen, launches, em_rec, em_launches)
 
 
 def main(argv=None) -> int:

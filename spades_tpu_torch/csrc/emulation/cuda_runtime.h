@@ -1,16 +1,15 @@
-// Host stand-ins for the few CUDA names that csrc/canonical_windows.cu uses,
-// so that the kernel's index and bit logic can be compiled with a plain C++
-// compiler and run on the CPU (see emulate_canonical_windows.cpp).  A block is
+// Host stand-ins for the few CUDA names that the kernels of csrc/ use, so
+// that their index, bit and control logic can be compiled with a plain C++
+// compiler and run on the CPU (see emulate_*.cpp).  A block is
 // a group of host threads, __syncthreads() a barrier among them, shared
 // memory a static array, and an asynchronous copy an immediate memcpy.
 #pragma once
 
 #include <algorithm>
-#include <condition_variable>
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <functional>
-#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -49,25 +48,24 @@ template <typename V> inline void __stcs(V* p, V v) { *p = v; }
 
 namespace spades_emulation {
 
+// A block's barrier: the last thread to arrive opens the next phase; the
+// others yield until it does (a block has more threads than the host cores).
 class Barrier {
   public:
     void reset(int n) { n_ = n; waiting_ = 0; phase_ = 0; }
     void wait() {
-        std::unique_lock<std::mutex> lk(mu_);
-        const int phase = phase_;
-        if (++waiting_ == n_) {
-            waiting_ = 0;
-            ++phase_;
-            cv_.notify_all();
+        const int phase = phase_.load(std::memory_order_acquire);
+        if (waiting_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+            waiting_.store(0, std::memory_order_relaxed);
+            phase_.store(phase + 1, std::memory_order_release);
         } else {
-            cv_.wait(lk, [&] { return phase_ != phase; });
+            while (phase_.load(std::memory_order_acquire) == phase) std::this_thread::yield();
         }
     }
 
   private:
-    std::mutex mu_;
-    std::condition_variable cv_;
-    int n_ = 1, waiting_ = 0, phase_ = 0;
+    int n_ = 1;
+    std::atomic<int> waiting_{0}, phase_{0};
 };
 
 inline Barrier block_barrier;
@@ -91,6 +89,23 @@ inline void run_grid(int grid, int block, const std::function<void()>& body) {
 }  // namespace spades_emulation
 
 inline void __syncthreads() { spades_emulation::block_barrier.wait(); }
+
+// A warp shuffle, for code that calls it from every thread of the block at
+// once (as block-wide sums do): each thread posts its value, then reads its
+// partner's.
+inline double __shfl_xor_sync(unsigned, double v, int lane_mask) {
+    static double posted[1024];
+    posted[threadIdx.x] = v;
+    spades_emulation::block_barrier.wait();
+    const double r = posted[threadIdx.x ^ lane_mask];
+    spades_emulation::block_barrier.wait();
+    return r;
+}
+
+// float64 steps with their own rounding (host code contracts nothing here)
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

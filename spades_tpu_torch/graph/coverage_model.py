@@ -36,6 +36,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from ..utils import timetracer
 
 MAX_COPY = 10  # copy-number mixture components (kmer_coverage_model.cpp:35)
 
@@ -220,16 +223,59 @@ def _estimate_valley(hist: np.ndarray) -> int:
 # public fits
 # ---------------------------------------------------------------------------
 
+def _em_host(good_cov: np.ndarray, x: np.ndarray, err_prob: float, total: float):
+    """The EM on the host (Fit :257-306): E-step, error probability, and
+    scipy's Nelder-Mead for the M-step, until the error probability moves by
+    at most 1e-8 or after 100 rounds.  Returns (x, err_prob, rounds,
+    evaluations of the objective)."""
+    from scipy.optimize import minimize
+
+    prev_p = 2.0
+    it = 1
+    evals = 0
+    while abs(prev_p - err_prob) > 1e-8 and it <= 100:
+        z = _estep(x, err_prob, len(good_cov))
+        prev_p = err_prob
+        err_prob = float(np.sum(z * good_cov)) / total
+        last_iter = abs(prev_p - err_prob) <= 1e-8
+        with np.errstate(all="ignore"):
+            res = minimize(
+                _em_objective(good_cov, z),
+                x,
+                method="Nelder-Mead",
+                options={
+                    "maxfev": None if last_iter else 5 * 6 * it,
+                    "xatol": 1e-8,
+                    "fatol": 1e-8,
+                },
+            )
+        evals += res.nfev
+        if np.all(np.isfinite(res.x)):
+            x = res.x
+        it += 1
+    return x, err_prob, it - 1, evals
+
+
 def fit_coverage_model(
     multiplicities: np.ndarray,
     probability_threshold: float = 0.05,
     strong_probability_threshold: float = 0.999,
+    device=None,
 ) -> GenomicInfo:
     """Fit the error/genomic mixture to k-mer multiplicities.
 
     ``multiplicities`` is the count per unique canonical k-mer; the histogram
     bin i (0-based) holds the number of k-mers of multiplicity i+1, matching
-    SPAdes' ``cov_`` indexing."""
+    SPAdes' ``cov_`` indexing.
+
+    ``device`` is where the EM runs.  None or the CPU: on the host, scipy's
+    Nelder-Mead over numpy, the JAX package's arithmetic bit for bit.  A CUDA
+    device: one launch of the kernel of `ops/coverage_em.py`, whose objective
+    differs from numpy's in the last digits, so the float fields differ there
+    too (on a histogram with several modes the fit may end in another basin);
+    the thresholds are read from its result by the same host code.  The
+    span `coverage_fit.em` around the EM records its `path` ("device" or
+    "host"), `rounds`, `evals` and `bins`."""
     m = np.asarray(multiplicities)
     if m.size == 0:
         return GenomicInfo(0.0, 0.0, 0.0, 0, converged=False)
@@ -270,32 +316,20 @@ def fit_coverage_model(
     err_prob = min(1 - 1e-3, max(1e-3, err_prob))
 
     # EM with Nelder-Mead M-step (Fit :257-306)
-    from scipy.optimize import minimize
-
     x = np.array([3.0, 3.0, float(max_cov), cov_sd, 1.0, 0.0])
     good_cov = hist[: min(len(hist), 5 * MAX_COPY * max_cov // 4)]
     converged = True
-    prev_p = 2.0
-    it = 1
-    while abs(prev_p - err_prob) > 1e-8 and it <= 100:
-        z = _estep(x, err_prob, len(good_cov))
-        prev_p = err_prob
-        err_prob = float(np.sum(z * good_cov)) / total
-        last_iter = abs(prev_p - err_prob) <= 1e-8
-        with np.errstate(all="ignore"):
-            res = minimize(
-                _em_objective(good_cov, z),
-                x,
-                method="Nelder-Mead",
-                options={
-                    "maxfev": None if last_iter else 5 * 6 * it,
-                    "xatol": 1e-8,
-                    "fatol": 1e-8,
-                },
-            )
-        if np.all(np.isfinite(res.x)):
-            x = res.x
-        it += 1
+    on_card = device is not None and torch.device(device).type == "cuda"
+    with timetracer.span("coverage_fit.em", path="device" if on_card else "host",
+                         bins=len(good_cov)) as sp:
+        if on_card:
+            from ..ops.coverage_em import coverage_em
+
+            x, err_prob, rounds, evals = coverage_em(
+                torch.from_numpy(np.ascontiguousarray(good_cov)).to(device), x, err_prob, total)
+        else:
+            x, err_prob, rounds, evals = _em_host(good_cov, x, err_prob, total)
+        sp.set(rounds=rounds, evals=evals)
 
     zp, shape, u, sd, scale, shape2 = x
     delta = shape2 / np.sqrt(1 + shape2 * shape2)

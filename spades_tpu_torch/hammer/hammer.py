@@ -236,7 +236,7 @@ def _correct_pass(
         labels = cluster_kmers(kc.words, cfg.k, cfg.tau)
         sp.set(clusters=int(labels.max()) + 1 if labels.size else 0)
     with step("coverage"):
-        info = fit_coverage_model(kc.counts)
+        info = fit_coverage_model(kc.counts, device=dev)
         solid_bound = max(cfg.min_solid_count, info.ec_bound)
 
     use_quality = cfg.use_quality and quals is not None and any(quals)

@@ -6,6 +6,9 @@
 is compiled by nvcc for sm_90a into `spades_tpu_torch/_build/` at first use
 and bound with ctypes.  On a CPU tensor the wrapper computes the kernel's
 plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
+`build` compiles every source of `csrc/` (the coverage EM's,
+`csrc/coverage_em.cu`, wrapped by `ops/coverage_em.py`, too) in one nvcc
+call into one library, so that a run's set-up pays for one build.
 """
 from __future__ import annotations
 
@@ -23,14 +26,19 @@ from ..core import kmers as K
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "canonical_windows.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SO = os.path.join(BUILD_DIR, "libcanonical_windows.so")
+EM_SRC = os.path.join(_PKG, "csrc", "coverage_em.cu")
+SOURCES = (_SRC, EM_SRC)
+_SO = os.path.join(BUILD_DIR, "libspades_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # spades_canonical_windows(pc, pn, lengths, keys, valid, strand, R, L, k, stream)
 C_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# spades_coverage_em(cov, n, init (8 host doubles), out, stream)
+EM_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+               ctypes.c_void_p, ctypes.c_void_p]
 
-_lib = None
+_lib = None         # the library of every source in SOURCES, loaded by `build`
 build_log = ""
 
 
@@ -46,8 +54,9 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile csrc/canonical_windows.cu (when the library is missing or
-    older than its source) and load it.  Returns the path of the library."""
+    """Compile csrc/canonical_windows.cu and csrc/coverage_em.cu in one nvcc
+    call into one library (when it is missing or older than either source)
+    and load it.  Returns the path of the library."""
     global _lib, build_log
     if _lib is not None:
         return _SO
@@ -57,15 +66,15 @@ def build() -> str:
     # sees a half-written library
     with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+        if not os.path.exists(_SO) or os.path.getmtime(_SO) < max(map(os.path.getmtime, SOURCES)):
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             try:
-                res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+                res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
                                      capture_output=True, text=True, timeout=600)
                 build_log = res.stdout + res.stderr
                 if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
+                    raise RuntimeError(f"nvcc failed on {SOURCES}:\n{build_log}")
                 os.replace(tmp, _SO)
             finally:
                 if os.path.exists(tmp):
@@ -75,6 +84,10 @@ def build() -> str:
     lib.spades_canonical_windows.argtypes = C_ARGTYPES
     lib.spades_cuda_error_string.restype = ctypes.c_char_p
     lib.spades_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.spades_coverage_em.restype = ctypes.c_int
+    lib.spades_coverage_em.argtypes = EM_ARGTYPES
+    lib.spades_coverage_em_error_string.restype = ctypes.c_char_p
+    lib.spades_coverage_em_error_string.argtypes = [ctypes.c_int]
     _lib = lib
     return _SO
 

@@ -247,8 +247,10 @@ def _start_profiler(device):
 def _log_launches(log) -> None:
     """Log how often this run launched each hand kernel (none on the CPU)."""
     from ..ops import cuda_kernels as CK
+    from ..ops.coverage_em import coverage_em
 
-    log.info("kernel launches: canonical_windows=%d", CK.canonical_window_keys.launches)
+    log.info("kernel launches: canonical_windows=%d coverage_em=%d",
+             CK.canonical_window_keys.launches, coverage_em.launches)
 
 
 def main(argv=None) -> int:

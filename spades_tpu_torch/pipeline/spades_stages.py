@@ -109,7 +109,7 @@ class GenomicInfoFiller(AssemblyStage):
             # single-cell use the short-edge coverage threshold finder
             from ..graph.coverage_model import GenomicInfo, find_uneven_threshold
 
-            info = fit_coverage_model(ctx.p1_counts.counts)
+            info = fit_coverage_model(ctx.p1_counts.counts, device=resolve_device(ctx.device))
             ctx.genomic_info = GenomicInfo(
                 ec_bound=find_uneven_threshold(ctx.graph),
                 trusted_bound=info.trusted_bound,
@@ -118,7 +118,8 @@ class GenomicInfoFiller(AssemblyStage):
                 converged=False,
             )
         else:
-            ctx.genomic_info = fit_coverage_model(ctx.p1_counts.counts)
+            ctx.genomic_info = fit_coverage_model(ctx.p1_counts.counts,
+                                                  device=resolve_device(ctx.device))
         log.info(
             "ec_bound=%.1f trusted=%.1f mean=%.1f genome~%d",
             ctx.genomic_info.ec_bound, ctx.genomic_info.trusted_bound,

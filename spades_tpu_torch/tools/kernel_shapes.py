@@ -1,5 +1,6 @@
 """Yardsticks of the canonical-windows kernel: the shapes the main path gives
-it, random inputs, the card's bound and a timer.  One copy, used by
+it, random inputs, the card's bound and a timer; and the coverage EM
+kernel's bound.  One copy, used by
 `chip_smoke.py` and `tools/kernel_bench.py`."""
 from __future__ import annotations
 
@@ -77,6 +78,26 @@ def canonical_windows_bound(R: int, L: int, k: int,
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# float64 instructions of the coverage EM's objective, estimated (not read
+# from the SASS): each (bin, copy) term an exp (about 20), an erf (about 30)
+# and about 15 more; each bin's error density two pows (about 40 each), two
+# logs (about 25 each) and about 10 more
+EM_TERM_OPS = 65
+EM_BIN_OPS = 140
+# FP64 lanes of one H100 SM, and its boost clock
+H100_FP64_LANES_PER_SM = 64
+H100_SM_HZ = 1.98e9
+
+
+def coverage_em_bound(bins: int, evals: int, copies: int = 10) -> float:
+    """Least time (ms) the coverage EM kernel needs for `evals` evaluations
+    of its objective over `bins` non-empty bins: one block, so the float64
+    work of each evaluation over the FP64 lanes of one SM, the evaluations
+    one after another (each simplex step needs the last)."""
+    ops = bins * (copies * EM_TERM_OPS + EM_BIN_OPS)
+    return evals * ops / (H100_FP64_LANES_PER_SM * H100_SM_HZ) * 1e3
 
 
 def key_words(keys: torch.Tensor) -> torch.Tensor:
