@@ -3,23 +3,20 @@
 Replaces SPAdes' sequential `UnbranchingPathExtractor` +
 `FastGraphFromSequencesConstructor`
 (`src/common/assembly_graph/construction/debruijn_graph_constructor.hpp:184,412,574`).
-When the index carries the inverse indices of its native build, the whole
-condensation runs in C++ (`native/graph.cpp stbr_condense`).  Otherwise the
-vectorized formulation of `spades_tpu.ops.condense` runs:
+Two implementations give the same graph, array for array:
 
-1. expand canonical k-mers into 2U oriented nodes and mask bits into the arc
-   list (one arc per oriented (k+1)-mer);
-2. link arc a -> next arc through its destination node when that node is
-   unbranching (outdeg == indeg == 1);
-3. cut perfect cycles at their minimum arc, then rank every arc in its chain
-   by pointer doubling (Wyllie) — in PyTorch on the run's device;
-4. maximal chains are the condensed edges: materialize their sequences, pair
-   each with its reverse-complement conjugate, emit junction vertices.
+- `condense_device`, in torch on the index's device (a card, or CPU
+  tensors): every (k+1)-mer row of the index's inverse indices places its
+  arc and its reverse-complement arc by arithmetic, chains are ranked by
+  pointer doubling (Wyllie, cycles cut before their minimum arc), and only
+  the graph's arrays cross to the host;
+- `native/graph.cpp stbr_condense` on the host, for a host index that
+  carries the inverse indices of its table.
 
-`condense_device` runs the same formulation on the card from the device
-index's inverse indices: every (k+1)-mer row places its arc and its
-reverse-complement arc by arithmetic, so no step looks a k-mer up, and only
-the graph's arrays cross to the host.
+`condense` takes any index and chooses: a device index condenses on its
+device, a host index natively where it can, and otherwise through the torch
+pair from the (k+1)-mers its masks hold (`_rows_of_masks`), which serves a
+masks-only index (the sharded build, JAX state) and a clipped one alike.
 """
 from __future__ import annotations
 
@@ -30,31 +27,14 @@ from .. import resolve_device
 from ..core import kmers as K
 from ..graph.graph import CondensedGraph
 from .count import KmerCounts, _words_of_keys, searchsorted_rows
-from .extension import POPCOUNT4, DeviceExtensionIndex, ExtensionIndex, canonicalize, mask_tail
+from .extension import (POPCOUNT4, DeviceExtensionIndex, ExtensionIndex,
+                        build_extension_index_device, keys_of_words, keys_to_device,
+                        revcomp_words_t)
 
 # 4-bit mask reversal: MASK_REV4[m] has bit (3-c) set iff m has bit c.
 MASK_REV4 = np.array(
     [sum(1 << (3 - c) for c in range(4) if m & (1 << c)) for m in range(16)], np.uint8
 )
-
-
-def _shift_in_base(words: np.ndarray, nt: np.ndarray, k: int) -> np.ndarray:
-    """node k-mer -> successor k-mer: drop base 0, append base `nt`."""
-    W = words.shape[-1]
-    out = (words << np.uint32(2)).astype(np.uint32)
-    out[..., : W - 1] |= words[..., 1:] >> np.uint32(30)
-    # clear tail beyond k-1 bases, then set base k-1 = nt
-    out = mask_tail(out, k)
-    w, jj = divmod(k - 1, 16)
-    out[..., w] |= nt.astype(np.uint32) << np.uint32(30 - 2 * jj)
-    return out
-
-
-def _set_base(words: np.ndarray, j: int, nt: np.ndarray, k: int) -> np.ndarray:
-    w, jj = divmod(j, 16)
-    out = words.copy()
-    out[..., w] |= nt.astype(np.uint32) << np.uint32(30 - 2 * jj)
-    return out
 
 
 def _doubling_rounds(n: int) -> int:
@@ -96,14 +76,6 @@ def _rank_chains(nxt: torch.Tensor, prv: torch.Tensor, rounds: int):
     return pos, parent
 
 
-def _rank_chains_device(nxt: np.ndarray, prv: np.ndarray, rounds: int, device):
-    """`_rank_chains` of host (A,) int64 arrays on `device`; returns
-    (pos, head) int64 numpy."""
-    pos, head = _rank_chains(torch.from_numpy(nxt).to(device),
-                             torch.from_numpy(prv).to(device), rounds)
-    return pos.cpu().numpy(), head.cpu().numpy()
-
-
 def _empty_graph(k: int) -> CondensedGraph:
     """The graph of an index without arcs."""
     z = np.zeros(0, np.int64)
@@ -113,17 +85,54 @@ def _empty_graph(k: int) -> CondensedGraph:
                           v_conj=z.copy())
 
 
-def condense(index: ExtensionIndex, p1: KmerCounts | None = None,
+def _rows_of_masks(index: ExtensionIndex, dev) -> torch.Tensor:
+    """The canonical (k+1)-mers an index's masks hold, as (P, W1) int64-held
+    words on `dev`.  Each set out-bit c of k-mer u is the (k+1)-mer u·c and
+    each set in-bit c is c·u; every row s sets two such bits, one for its
+    prefix and one for its suffix, each spelling s or its reverse
+    complement.  The prefix's is the one kept: an out-bit that spells a
+    canonical (k+1)-mer, or an in-bit that spells the reverse complement
+    of one (a palindrome sets one bit twice).  Out-bits alone would miss
+    the rows whose prefix is stored reverse-complemented."""
+    k = index.k
+    if k % 2 == 0:
+        raise ValueError(f"k must be odd (got k={k})")   # so W(k+1) = W(k)
+    u = torch.from_numpy(index.kmers.astype(np.int64)).to(dev)
+    bases = torch.arange(4, dtype=torch.int64, device=dev)
+
+    def bits(mask):
+        return torch.nonzero((torch.from_numpy(mask).to(dev).long()[:, None] >> bases) & 1,
+                             as_tuple=True)
+
+    w, j = divmod(k, 16)
+    row, c = bits(index.out_mask)
+    fwd = u.index_select(0, row)
+    fwd[:, w] |= c << (30 - 2 * j)
+    fwd = fwd[~K.lex_less(revcomp_words_t(fwd, k + 1), fwd)]
+    row, c = bits(index.in_mask)
+    v = u.index_select(0, row)
+    bwd = v >> 2
+    bwd[:, 1:] |= (v[:, :-1] & 3) << 30
+    bwd[:, 0] |= c << 30
+    rc = revcomp_words_t(bwd, k + 1)
+    return torch.cat([fwd, rc[~K.lex_less(bwd, rc)]])
+
+
+def condense(index: ExtensionIndex | DeviceExtensionIndex, p1: KmerCounts | None = None,
              device=None) -> CondensedGraph:
     """Build the condensed conjugate graph from an extension index.
 
-    p1: the (k+1)-mer counts used for per-edge coverage sums (optional).
-    device: where the chain ranking of the vectorized path runs.
-
-    Native fast path: when the index carries the inverse indices of its
-    build sort and the matching p1 table is given, the whole condensation
-    runs in C++ with zero k-mer lookups and O(A) sequential chain walks.
+    p1: the (k+1)-mer counts used for per-edge coverage sums (optional; each
+    arc counts once without them).  A device index condenses on its device
+    (`condense_device`).  A host index condenses in C++ with zero k-mer
+    lookups when the native library loads, the index carries the inverse
+    indices of its build and the matching p1 is given; otherwise the torch
+    pair runs on `device` (None: the CUDA card; see `resolve_device`) over
+    the rows its masks hold, and raises unless those rows spell the index's
+    masks exactly, row for row.
     """
+    if isinstance(index, DeviceExtensionIndex):
+        return condense_device(index, None if p1 is None else p1.counts)
     if (
         p1 is not None
         and index.pref_idx is not None
@@ -147,123 +156,22 @@ def condense(index: ExtensionIndex, p1: KmerCounts | None = None,
                 seq_pool=seq_pool, v_conj=v_conj,
             )
     dev = resolve_device(device)
-    k = index.k
-    U = index.num_kmers
-    Wk = index.kmers.shape[-1]
-
-    # ---- oriented nodes ------------------------------------------------
-    # node 2i = stored (canonical) orientation, node 2i+1 = reverse complement
-    omask = np.empty(2 * U, np.uint8)
-    imask = np.empty(2 * U, np.uint8)
-    omask[0::2] = index.out_mask
-    omask[1::2] = MASK_REV4[index.in_mask]
-    imask[0::2] = index.in_mask
-    imask[1::2] = MASK_REV4[index.out_mask]
-    node_outdeg = POPCOUNT4[omask]
-    node_indeg = POPCOUNT4[imask]
-
-    rc_kmers = K.revcomp_words(index.kmers, k)
-    node_words = np.empty((2 * U, Wk), np.uint32)
-    node_words[0::2] = index.kmers
-    node_words[1::2] = rc_kmers
-    # first base of every oriented node (for conjugate arc resolution)
-    node_fb = np.empty(2 * U, np.uint8)
-    node_fb[0::2] = K.base_at(index.kmers, 0, k).astype(np.uint8)
-    node_fb[1::2] = 3 - K.base_at(index.kmers, k - 1, k).astype(np.uint8)
-
-    # ---- arcs (one per oriented (k+1)-mer) ----------------------------
-    bits = (omask[:, None] >> np.arange(4, dtype=np.uint8)[None, :]) & 1
-    arc_src, arc_nt = np.nonzero(bits)  # row-major: sorted by (node, nt)
-    arc_src = arc_src.astype(np.int64)
-    arc_nt = arc_nt.astype(np.uint8)
-    A = arc_src.shape[0]
-    node_arc_start = np.concatenate([[0], np.cumsum(node_outdeg)]).astype(np.int64)
-
-    if A == 0:
-        return _empty_graph(k)
-
-    # destination nodes
-    succ_words = _shift_in_base(node_words[arc_src], arc_nt, k)
-    succ_canon, succ_rc = canonicalize(succ_words, k)
-    succ_idx = searchsorted_rows(index.kmers, succ_canon)
-    if np.any(succ_idx < 0):
-        raise ValueError("dangling (k+1)-mer suffix: extension index inconsistent")
-    arc_dst = 2 * succ_idx + succ_rc.astype(np.int64)
-
-    # arc coverage = count of the canonical (k+1)-mer  node_seq + nt
+    words = _rows_of_masks(index, dev)
+    counts = None
     if p1 is not None:
-        p1w = _set_base(node_words[arc_src], k, arc_nt, k + 1)
-        p1c, _ = canonicalize(p1w, k + 1)
-        cidx = searchsorted_rows(p1.words, p1c)
-        if np.any(cidx < 0):
+        rows = searchsorted_rows(p1.words, words.cpu().numpy().astype(np.uint32))
+        if np.any(rows < 0):
             raise ValueError("arc (k+1)-mer missing from counts")
-        arc_cov = p1.counts[cidx].astype(np.float64)
-    else:
-        arc_cov = np.ones(A, np.float64)
-
-    # ---- chain links ---------------------------------------------------
-    nxt = np.full(A, -1, np.int64)
-    link_ok = (node_outdeg[arc_dst] == 1) & (node_indeg[arc_dst] == 1)
-    nxt[link_ok] = node_arc_start[arc_dst[link_ok]]
-    prv = np.full(A, -1, np.int64)
-    valid_n = nxt >= 0
-    prv[nxt[valid_n]] = np.flatnonzero(valid_n)
-
-    pos, head = _rank_chains_device(nxt, prv, _doubling_rounds(A), dev)
-
-    # ---- edges ---------------------------------------------------------
-    uheads, edge_of_arc = np.unique(head, return_inverse=True)
-    E = uheads.shape[0]
-    n_arcs = np.zeros(E, np.int64)
-    np.maximum.at(n_arcs, edge_of_arc, pos + 1)
-    e_len = n_arcs + k
-    e_off = np.concatenate([[0], np.cumsum(e_len)])[:-1].astype(np.int64)
-    e_cov = np.zeros(E, np.float64)
-    np.add.at(e_cov, edge_of_arc, arc_cov)
-
-    # sequences: k-prefix from head's source node, then one nt per arc
-    seq_pool = np.zeros(int(e_len.sum()), np.uint8)
-    head_src = arc_src[uheads]
-    prefix_codes = K.unpack(node_words[head_src], k)  # (E, k)
-    pre_pos = (e_off[:, None] + np.arange(k)[None, :]).ravel()
-    seq_pool[pre_pos] = prefix_codes.ravel()
-    seq_pool[e_off[edge_of_arc] + k + pos] = arc_nt
-
-    # endpoints
-    tail_arc = np.zeros(E, np.int64)
-    is_tail = pos == (n_arcs[edge_of_arc] - 1)
-    tail_arc[edge_of_arc[is_tail]] = np.flatnonzero(is_tail)
-    start_node = head_src
-    end_node = arc_dst[tail_arc]
-
-    # ---- conjugate pairing --------------------------------------------
-    # rc of arc (n -c-> m) is the arc (m^1 -comp(fb(n))-> n^1)
-    rc_src = arc_dst ^ 1
-    rc_nt = (3 - node_fb[arc_src]).astype(np.uint8)
-    if not np.all((omask[rc_src] >> rc_nt) & 1 == 1):
-        raise ValueError("conjugate arc missing: extension index inconsistent")
-    below = omask[rc_src] & ((np.uint8(1) << rc_nt) - 1)
-    rc_arc = node_arc_start[rc_src] + POPCOUNT4[below]
-    e_conj = edge_of_arc[rc_arc[tail_arc]]
-    if not np.array_equal(e_conj[e_conj], np.arange(E)):
-        raise ValueError("edge conjugation is not an involution")
-
-    # ---- vertices ------------------------------------------------------
-    end_nodes = np.concatenate([start_node, end_node])
-    vnodes = np.unique(np.concatenate([end_nodes, end_nodes ^ 1]))
-    node2v = -np.ones(2 * U, np.int64)
-    node2v[vnodes] = np.arange(vnodes.shape[0])
-    v_conj = node2v[vnodes ^ 1]
-    e_start = node2v[start_node]
-    e_end = node2v[end_node]
-
-    return CondensedGraph(
-        k=k,
-        e_start=e_start, e_end=e_end, e_conj=e_conj,
-        e_off=e_off, e_len=e_len, e_cov=e_cov,
-        alive=np.ones(E, bool), seq_pool=seq_pool,
-        v_conj=v_conj,
-    )
+        counts = p1.counts[rows]
+    dix = build_extension_index_device(keys_of_words(words), index.k)
+    # the rows must spell the index back: the same k-mers with arcs (a bit
+    # without its partner adds or drops a k-mer or a bit) and equal masks
+    held = (index.in_mask | index.out_mask) != 0
+    if not (torch.equal(dix.kmers, keys_to_device(index.kmers[held], dev))
+            and torch.equal(dix.in_mask, torch.from_numpy(index.in_mask[held]).to(dev))
+            and torch.equal(dix.out_mask, torch.from_numpy(index.out_mask[held]).to(dev))):
+        raise ValueError("extension index inconsistent: its masks are not those of its arcs")
+    return condense_device(dix, counts)
 
 
 def condense_device(index: DeviceExtensionIndex, counts=None) -> CondensedGraph:
@@ -273,7 +181,7 @@ def condense_device(index: DeviceExtensionIndex, counts=None) -> CondensedGraph:
     counts: the (k+1)-mer table's counts (host array or tensor, one per row
     of the index's inverse indices) for the edges' coverage sums; None
     counts each arc once.  Arcs are numbered by (oriented node, base) as in
-    `condense`; each row gives its arc src -s[k]-> dst, with src and dst
+    `stbr_condense`; each row gives its arc src -s[k]-> dst, with src and dst
     its prefix's and suffix's oriented nodes, and the reverse-complement
     arc dst^1 -comp(s[0])-> src^1 (the same arc for a palindrome)."""
     dev = index.kmers.device

@@ -13,10 +13,11 @@ array position); the build is a vectorized pass over unique (k+1)-mers:
                        mask as comp(s[k]))
     suffix  S = s[1:]  gains in-bit s[0]    (same normalization)
 
-Host numpy with the native fast path, as in `spades_tpu.ops.extension`; on
-a card, `build_extension_index_device` builds the same index, inverse indices
-included, from the table's key planes in torch (the contributions and the
-run OR that `parallel/sharded_extension.py` shares).
+Two builds give the same index, inverse indices included:
+`build_extension_index_device` from the table's key planes in torch, on a
+card or on CPU tensors (the contributions and the run OR that
+`parallel/sharded_extension.py` shares), and the native `stbr_build_ext`
+on the host, which `build_extension_index` runs where the library loads.
 """
 from __future__ import annotations
 
@@ -26,9 +27,8 @@ import numpy as np
 import torch
 
 from ..core import kmers as K
-from .count import KmerCounts, RowIndex, _lex_order, _lexsort_rows, _words_of_keys
+from .count import KmerCounts, RowIndex, _lex_order, _words_of_keys
 
-NT_COMP = np.array([3, 2, 1, 0], np.uint8)
 POPCOUNT4 = np.array([bin(i).count("1") for i in range(16)], np.uint8)
 
 
@@ -129,62 +129,23 @@ class ExtensionIndex:
 
 
 def build_extension_index(p1: KmerCounts) -> ExtensionIndex:
-    """Build the extension index from unique canonical (k+1)-mers.
+    """Build the extension index, with its inverse indices, from unique
+    canonical (k+1)-mers, on the host.
 
-    Native fast path (`native/graph.cpp stbr_build_ext`) radix-sorts the
-    prefix/suffix contributions and keeps the inverse indices; the numpy
-    fallback below computes identical masks (without inverses)."""
+    `native/graph.cpp stbr_build_ext` radix-sorts the prefix/suffix
+    contributions where the native library loads; elsewhere the device
+    build runs on CPU tensors and gives the same arrays."""
     k = p1.k - 1
     if k % 2 == 0:
         raise ValueError(f"k must be odd (got k={k})")
-    s = p1.words
-    n = s.shape[0]
-    if n > 0:
-        from ..native import build_ext_native
+    from ..native import build_ext_native
 
-        nat = build_ext_native(s, k)
-        if nat is not None:
-            kmers, in_mask, out_mask, pref_idx, pref_rc, suf_idx, suf_rc = nat
-            return ExtensionIndex(
-                k=k, kmers=kmers, in_mask=in_mask, out_mask=out_mask,
-                pref_idx=pref_idx, pref_rc=pref_rc,
-                suf_idx=suf_idx, suf_rc=suf_rc,
-            )
-    if n == 0:
-        Wk = K.kmer_words(k)
-        return ExtensionIndex(
-            k=k,
-            kmers=np.zeros((0, Wk), np.uint32),
-            in_mask=np.zeros(0, np.uint8),
-            out_mask=np.zeros(0, np.uint8),
-        )
-    last = K.base_at(s, k, p1.k).astype(np.uint8)   # s[k]
-    first = K.base_at(s, 0, p1.k).astype(np.uint8)  # s[0]
-
-    pref, pref_rc = canonicalize(prefix_kmer(s, k), k)
-    suf, suf_rc = canonicalize(suffix_kmer(s, k), k)
-
-    # prefix contribution: out-bit last  (or in-bit comp(last) when stored rc)
-    # suffix contribution: in-bit first  (or out-bit comp(first) when stored rc)
-    contrib_kmers = np.concatenate([pref, suf], axis=0)
-    out_bits = np.zeros(2 * n, np.uint8)
-    in_bits = np.zeros(2 * n, np.uint8)
-    out_bits[:n] = np.where(pref_rc, 0, np.uint8(1) << last)
-    in_bits[:n] = np.where(pref_rc, np.uint8(1) << NT_COMP[last], 0)
-    in_bits[n:] = np.where(suf_rc, 0, np.uint8(1) << first)
-    out_bits[n:] = np.where(suf_rc, np.uint8(1) << NT_COMP[first], 0)
-
-    order = _lexsort_rows(contrib_kmers)
-    ck = contrib_kmers[order]
-    ob, ib = out_bits[order], in_bits[order]
-    new = np.concatenate([[True], np.any(ck[1:] != ck[:-1], axis=1)])
-    seg = np.cumsum(new) - 1
-    u = int(seg[-1]) + 1 if len(seg) else 0
-    out_mask = np.zeros(u, np.uint8)
-    in_mask = np.zeros(u, np.uint8)
-    np.bitwise_or.at(out_mask, seg, ob)
-    np.bitwise_or.at(in_mask, seg, ib)
-    return ExtensionIndex(k=k, kmers=ck[new], in_mask=in_mask, out_mask=out_mask)
+    nat = build_ext_native(p1.words, k) if p1.num_unique else None
+    if nat is None:
+        return build_extension_index_device(keys_to_device(p1.words, "cpu"), k).to_host()
+    kmers, in_mask, out_mask, pref_idx, pref_rc, suf_idx, suf_rc = nat
+    return ExtensionIndex(k=k, kmers=kmers, in_mask=in_mask, out_mask=out_mask,
+                          pref_idx=pref_idx, pref_rc=pref_rc, suf_idx=suf_idx, suf_rc=suf_rc)
 
 
 # ---------------------------------------------------------------------------

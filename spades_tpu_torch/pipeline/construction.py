@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..core.reads import batch_iter, chop_sequences
 from ..graph.graph import CondensedGraph
 from ..ops import condense as _condense
@@ -36,8 +36,8 @@ class ConstructionResult:
     # Per-phase wall seconds: count_reads' keys (device_s, device_first_s,
     # pull_s, merge_s, host_s, n_batches) plus extra_count_s (two-pass
     # structure counting), filter_s, ext_build_s, early_clip_s (when a
-    # clipper ran) and condense_s; ext_device is 1 where the index and the
-    # condensation ran on the card, else 0.
+    # clipper ran) and condense_s; ext_device is 1 where the index was
+    # built on the card, else 0.
     timings: dict = field(default_factory=dict)
 
     @property
@@ -47,13 +47,6 @@ class ConstructionResult:
         if isinstance(self._index, _ext.DeviceExtensionIndex):
             self._index = self._index.to_host()
         return self._index
-
-
-def _on_card(dev, early_clip: bool) -> bool:
-    """Whether the extension index and the condensation run on the device:
-    on a CUDA card, unless an early clipper edits the host index between
-    the two."""
-    return dev.type == "cuda" and not early_clip
 
 
 def _count_sharded(batches, k1: int, group, dev, tm: dict) -> _count.KmerCounts:
@@ -89,12 +82,15 @@ def construct_graph(
     graph build.  extra_sequences: prev-K / trusted contigs, which add graph
     structure but no coverage.  read_store: a `ReadStore` of the same reads,
     packed once for the whole run; when given, `sequences` is not read.
-    device: where counting runs (None: the CUDA card; see `resolve_device`).
-    On a CUDA card the table's key planes go to the card once and the
-    extension index (`build_extension_index_device`) and the condensation
-    (`condense_device`) run there, handing only the graph back; on the CPU
-    and under an early clipper the host index and the native condensation
-    run (`timings["ext_device"]` says which).
+    device: where counting and the extension index build run (None: the
+    CUDA card; see `resolve_device`).  On a CUDA card the table's key planes
+    go to the card once and the extension index
+    (`build_extension_index_device`) and the condensation (`condense_device`)
+    run there, handing only the graph back; on the CPU the native host index
+    (`build_extension_index`) and `stbr_condense` run, or without the native
+    library the same torch pair on CPU tensors.  The condensation follows
+    the index (`condense`): `timings["ext_device"]` is 1 where the index was
+    built on the card, and the spans' `path` says which pair ran.
 
     early_tip_clip / early_at_clip: run the pre-condensation clippers on the
     extension index (SPAdes' construction.cpp:446-450: the EarlyATClipper
@@ -102,6 +98,7 @@ def construct_graph(
     tip length bound defaults to read_length - k (construction.cpp:297-300).
     Both counting branches meet before the index build, so the clippers see
     the same masks either way; their time is `timings["early_clip_s"]`.
+    They edit a host index, so a device index is pulled before them.
 
     group: the process group the count runs across (None: the default group
     of a multi-process run, else one device).  Under a group each rank
@@ -149,18 +146,20 @@ def construct_graph(
             rows = _count.searchsorted_rows(structure.words, p1.words)
             cov[rows] = p1.counts
             p1 = _count.KmerCounts(k=p1.k, words=structure.words, counts=cov)
-    early_clip = early_at_clip or early_tip_clip
-    path = "device" if _on_card(dev, early_clip) else "host"
-    tm["ext_device"] = int(path == "device")
-    with span(".ext_build", into=tm, key="ext_build_s", path=path) as s:
-        if path == "device":
+    with span(".ext_build", into=tm, key="ext_build_s") as s:
+        if dev.type == "cuda" or native.lib() is None:
+            # the torch build: on the card, or on CPU tensors without the
+            # native library, where the index then condenses as it stands
             index = _ext.build_extension_index_device(_ext.keys_to_device(p1.words, dev), k)
         else:
             index = _ext.build_extension_index(p1)
+        tm["ext_device"] = int(dev.type == "cuda")
         sizes = _index_sizes(index)
-        s.set(**sizes)
-    if early_clip:
+        s.set(path=_path(index), **sizes)
+    if early_at_clip or early_tip_clip:
         with span(".early_clip", into=tm, key="early_clip_s"):
+            if isinstance(index, _ext.DeviceExtensionIndex):
+                index = index.to_host()
             if early_at_clip:
                 _early.remove_at_edges(index)
                 _early.remove_at_tips(index)
@@ -170,13 +169,16 @@ def construct_graph(
                     bound = (read_length - k) if read_length and read_length > k else k
                 _early.clip_tips_early(index, bound)
         sizes = _index_sizes(index)
-    with span(".condense", into=tm, key="condense_s", path=path, **sizes) as s:
-        if path == "device":
-            graph = _condense.condense_device(index, p1.counts)
-        else:
-            graph = _condense.condense(index, p1, device=dev)
+    with span(".condense", into=tm, key="condense_s", path=_path(index), **sizes) as s:
+        graph = _condense.condense(index, p1, device=dev)
         s.set(unique_kmers=int(p1.num_unique), edges=int(graph.num_edges))
     return ConstructionResult(graph=graph, p1_counts=p1, _index=index, timings=tm)
+
+
+def _path(index) -> str:
+    """The spans' `path` of a step on this index: "device" for the torch
+    pair's index (on the card, or on CPU tensors), else "host"."""
+    return "device" if isinstance(index, _ext.DeviceExtensionIndex) else "host"
 
 
 def _index_sizes(index) -> dict:

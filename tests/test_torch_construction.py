@@ -105,14 +105,20 @@ def test_read_store_and_two_pass_structure_match_jax(device_path, k):
 
 
 def test_host_fallbacks_match_jax(device_path, monkeypatch):
-    """Without the native library: numpy merge, numpy extension index and
-    the vectorized condensation with the torch chain ranking."""
+    """Without the native library: numpy merge, and the device pair on CPU
+    tensors, whose index gives `stbr_build_ext`'s arrays."""
     reads, genome = _dataset(7)
     ref = j_construct(reads, 33, extra_sequences=[genome[:900]])
-    monkeypatch.setattr(native, "lib", lambda: None)
-    got = t_construct(reads, 33, extra_sequences=[genome[:900]], batch_size=256,
-                      device="cpu")
-    assert got.index.pref_idx is None
+    with monkeypatch.context() as mp:
+        mp.setattr(native, "lib", lambda: None)
+        got = t_construct(reads, 33, extra_sequences=[genome[:900]], batch_size=256,
+                          device="cpu")
+    assert isinstance(got._index, t_ext.DeviceExtensionIndex)
+    nat = native.build_ext_native(got.p1_counts.words, 33)
+    assert nat is not None
+    for f, want in zip(INDEX_FIELDS, nat):
+        a = getattr(got.index, f)
+        assert a.dtype == want.dtype and np.array_equal(a, want), f
     _same_counts(got.p1_counts, ref.p1_counts)
     _same_graph(got.graph, ref.graph)
 
@@ -125,7 +131,7 @@ def test_convert_feeds_jax_state_to_port_stages():
     tp1 = convert.counts_from_arrays(dataclasses.asdict(p1))
     tidx = convert.ext_index_from_arrays(dataclasses.asdict(jidx))
     _same_graph(t_condense.condense(tidx, tp1, device="cpu"), ref)
-    # without inverse indices: the vectorized path and its torch ranking
+    # without inverse indices: the torch pair from the index's masks
     bare = {f: v for f, v in dataclasses.asdict(jidx).items()
             if f in ("k", "kmers", "in_mask", "out_mask")}
     tbare = convert.ext_index_from_arrays(bare)
@@ -141,14 +147,51 @@ def test_convert_feeds_jax_state_to_port_stages():
     _same_graph(tg, ref)
 
 
+def test_masks_only_condense_rejects_masks_its_arcs_do_not_spell():
+    """A masks-only index that holds one (k+1)-mer's prefix bit without its
+    suffix bit and another's suffix bit without its prefix bit: the rows the
+    masks spell rebuild as many arcs as the index holds, so only the
+    row-for-row comparison sees that the masks are not the index's."""
+    reads, _ = _dataset(11)
+    k = 21
+    p1 = t_count.count_sequences(reads, k + 1, device="cpu")
+    dix = t_ext.build_extension_index_device(t_ext.keys_to_device(p1.words, "cpu"), k)
+    idx = dix.to_host()
+    first, last = dix.first.numpy().astype(int), dix.last.numpy().astype(int)
+
+    def bit(r, end):
+        """(k-mer row, mask, base) of the bit row r sets for its prefix or suffix."""
+        if end == "prefix":
+            rc, b = int(idx.pref_rc[r]), last[r]
+            return int(idx.pref_idx[r]), ("in_mask" if rc else "out_mask"), (3 - b if rc else b)
+        rc, b = int(idx.suf_rc[r]), first[r]
+        return int(idx.suf_idx[r]), ("out_mask" if rc else "in_mask"), (3 - b if rc else b)
+
+    a, b = [r for r in range(100) if bit(r, "prefix") != bit(r, "suffix")][:2]
+    masks = {"in_mask": idx.in_mask.copy(), "out_mask": idx.out_mask.copy()}
+    for row, m, c in (bit(a, "suffix"), bit(b, "prefix")):
+        assert masks[m][row] >> c & 1
+        masks[m][row] &= np.uint8(15 - (1 << c))
+    bad = t_ext.ExtensionIndex(k=k, kmers=idx.kmers, **masks)
+    rebuilt = t_ext.build_extension_index_device(
+        t_ext.keys_of_words(t_condense._rows_of_masks(bad, torch.device("cpu"))), k)
+    assert rebuilt.num_arcs == bad.num_arcs == idx.num_arcs - 2
+    with pytest.raises(ValueError, match="not those of its arcs"):
+        t_condense.condense(bad, p1, device="cpu")
+    good = t_ext.ExtensionIndex(k=k, kmers=idx.kmers, in_mask=idx.in_mask,
+                                out_mask=idx.out_mask)
+    _same_graph(t_condense.condense(good, p1, device="cpu"),
+                t_condense.condense_device(dix, p1.counts))
+
+
 def test_rank_chains_cuts_cycles_like_jax():
     # two chains (0->1->2, 3->4) and a cycle 5->6->7->5
     nxt = np.array([1, 2, -1, 4, -1, 6, 7, 5], np.int64)
     prv = np.array([-1, 0, 1, -1, 3, 7, 5, 6], np.int64)
     rounds = t_condense._doubling_rounds(8)
-    pos, head = t_condense._rank_chains_device(nxt, prv, rounds, torch.device("cpu"))
+    pos, head = t_condense._rank_chains(torch.from_numpy(nxt), torch.from_numpy(prv), rounds)
     jpos, jhead = j_condense._rank_chains_device(nxt, prv, rounds)
-    assert np.array_equal(pos, jpos) and np.array_equal(head, jhead)
+    assert np.array_equal(pos.numpy(), jpos) and np.array_equal(head.numpy(), jhead)
     assert pos.tolist() == [0, 1, 2, 0, 1, 0, 1, 2]
 
 
@@ -317,6 +360,9 @@ def _device_pair_matches(p1, k):
     g = t_condense.condense_device(dix, p1.counts)
     host_idx = t_ext.ExtensionIndex(k=k, **dict(zip(INDEX_FIELDS, nat)))
     _same_graph(g, t_condense.condense(host_idx, p1, device="cpu"))   # stbr_condense
+    # masks only: the torch pair from the (k+1)-mers the masks hold
+    bare = t_ext.ExtensionIndex(k=k, kmers=got.kmers, in_mask=got.in_mask, out_mask=got.out_mask)
+    _same_graph(g, t_condense.condense(bare, p1, device="cpu"))
     _same_graph(g, j_condense.condense(jidx, jp1))
     # without counts every arc counts once, as in the vectorized path
     _same_graph(t_condense.condense_device(dix, None),
@@ -403,17 +449,20 @@ def test_device_pair_edge_tables(slicing, k, case):
 
 
 def test_construct_graph_device_path_on_cpu(device_path, monkeypatch, tmp_path):
-    """`construct_graph` with the device pair taken on the CPU: the graph
-    and the index equal the host path's, the index is pulled only when read,
-    and the spans and the phase trail say which path ran."""
-    from spades_tpu_torch.pipeline import construction as t_constr
+    """`construct_graph` on the CPU without the native library takes the
+    device pair on CPU tensors, as a card does: the graph and the index
+    equal the native path's, the index is pulled only when read or before a
+    clipper (whose index then condenses from its masks), and the spans say
+    which pair ran; `ext_device` counts the card only."""
     from spades_tpu_torch.utils import timetracer
 
     reads, genome = _dataset(31)
     extra = [genome[:1500]]
     host = t_construct(reads, 33, extra_sequences=extra, batch_size=256, device="cpu")
     assert host.timings["ext_device"] == 0
-    monkeypatch.setattr(t_constr, "_on_card", lambda dev, early_clip: not early_clip)
+    host_clipped = t_construct(reads, 33, early_tip_clip=True, read_length=100,
+                               batch_size=256, device="cpu")
+    monkeypatch.setattr(native, "lib", lambda: None)
     timetracer.enable()
     try:
         got = t_construct(reads, 33, extra_sequences=extra, batch_size=256, device="cpu")
@@ -422,7 +471,9 @@ def test_construct_graph_device_path_on_cpu(device_path, monkeypatch, tmp_path):
         events = timetracer.events()
     finally:
         timetracer.disable()
-    assert got.timings["ext_device"] == 1 and clipped.timings["ext_device"] == 0
+    assert got.timings["ext_device"] == 0 and clipped.timings["ext_device"] == 0
+    assert isinstance(clipped._index, t_ext.ExtensionIndex)
+    _same_graph(clipped.graph, host_clipped.graph)
     _same_graph(got.graph, host.graph)
     assert isinstance(got._index, t_ext.DeviceExtensionIndex)
     for f in INDEX_FIELDS:
@@ -431,7 +482,7 @@ def test_construct_graph_device_path_on_cpu(device_path, monkeypatch, tmp_path):
     steps = [e["args"] for e in events
              if e["name"] in ("construction.ext_build", "construction.condense", "ext_build",
                               "condense")]
-    assert [a["path"] for a in steps] == ["device", "device", "host", "host"]
+    assert [a["path"] for a in steps] == ["device", "device", "device", "host"]
     assert steps[0]["kmers"] == steps[1]["kmers"] == host.index.num_kmers
     assert steps[0]["arcs"] == steps[1]["arcs"] == host.index.num_arcs > 0
     assert all("kmers" in a and "arcs" in a for a in steps[2:])

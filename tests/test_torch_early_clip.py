@@ -21,7 +21,7 @@ from spades_tpu.ops import early_clip as j_ec
 from spades_tpu.ops.count import count_sequences as j_count
 from spades_tpu.ops.extension import build_extension_index as j_build
 from spades_tpu.pipeline.construction import construct_graph as j_construct
-from spades_tpu_torch import convert
+from spades_tpu_torch import convert, native
 from spades_tpu_torch.core import kmers as t_kmers
 from spades_tpu_torch.ops import early_clip as t_ec
 from spades_tpu_torch.pipeline.construction import construct_graph as t_construct
@@ -171,15 +171,20 @@ def lowered():
         yield mp
 
 
+@pytest.mark.parametrize("use_native", [True, False], ids=["native", "no_native"])
 @pytest.mark.parametrize("min_count", [1, 2])
 @pytest.mark.parametrize("clip", [{"early_at_clip": True},
                                   {"early_tip_clip": True, "early_tc_length_bound": 30},
                                   {"early_tip_clip": True, "read_length": 45},
                                   {"early_at_clip": True, "early_tip_clip": True}])
-def test_construct_graph_with_clipping_matches(rng, lowered, min_count, clip):
+def test_construct_graph_with_clipping_matches(rng, lowered, monkeypatch, min_count, clip,
+                                               use_native):
     """Reads with poly-A/T tails and error tips; the previous K's contigs as
     extra sequences take the fused branch at min_count 1 and the merge
-    branch at 2."""
+    branch at 2.  Without the native library the clipped index condenses
+    through the torch pair from its masks."""
+    if not use_native:
+        monkeypatch.setattr(native, "lib", lambda: None)
     k = 15
     genome = clean_random_dna(rng, 900, k)
     reads = tile_reads(genome, 45, 2) * min_count

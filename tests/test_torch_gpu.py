@@ -168,11 +168,47 @@ def test_construct_graph_device_pair_over_the_k_ladder_matches_cpu(cuda, monkeyp
     assert paths == ["host", "host", "device", "device"] * 4
 
 
+@pytest.mark.parametrize("clip", [{"early_tip_clip": True}, {"early_at_clip": True},
+                                  {"early_tip_clip": True, "early_at_clip": True}],
+                         ids=["tip", "at", "both"])
+def test_construct_graph_early_clip_on_card_matches_cpu(cuda, clip):
+    """Under the early clippers (tips; the A/T clipper of `--rna` and
+    `--rnaviral`; both) the index is built on the card and pulled for the
+    clipper: `.ext_build` runs on the device and `.condense` on the host,
+    and the graph and the clipped masks equal the CPU's."""
+    from spades_tpu_torch.utils import timetracer
+
+    reads, genome = _reads(41, G=20000, n=2000)
+    # poly-A / poly-T tails and a poly-A prev-K contig give the A/T clipper work
+    reads = [r[:70] + "A" * 30 if i % 7 == 0 else r[:70] + "T" * 30 if i % 7 == 1 else r
+             for i, r in enumerate(reads)]
+    extra = [genome[:3000] + "A" * 60]
+    ref = construct_graph(reads, 33, read_length=100, extra_sequences=extra, device="cpu",
+                          **clip)
+    plain = construct_graph(reads, 33, extra_sequences=extra, device="cpu")
+    assert ref.graph.num_edges < plain.graph.num_edges
+    timetracer.enable()
+    try:
+        got = construct_graph(reads, 33, read_length=100, extra_sequences=extra, device=cuda,
+                              **clip)
+        events = timetracer.events()
+    finally:
+        timetracer.disable()
+    paths = [(e["name"], e["args"]["path"]) for e in events
+             if e["name"] in ("ext_build", "condense")]
+    assert paths == [("ext_build", "device"), ("condense", "host")]
+    assert got.timings["ext_device"] == 1
+    for f in GRAPH_FIELDS:
+        assert np.array_equal(getattr(got.graph, f), getattr(ref.graph, f)), f
+    for f in ("kmers", "in_mask", "out_mask"):
+        assert np.array_equal(getattr(got.index, f), getattr(ref.index, f)), f
+
+
 def test_condense_ranking_on_cuda(cuda):
     reads, _ = _reads(7)
     p1 = C.count_sequences(reads, 22, device="cpu")
     full = build_extension_index(p1)
-    # no inverse indices: the vectorized path with the torch chain ranking
+    # no inverse indices: the torch pair from the masks, on the card and the CPU
     idx = ExtensionIndex(k=full.k, kmers=full.kmers, in_mask=full.in_mask,
                          out_mask=full.out_mask)
     ref = condense(idx, p1, device="cpu")
